@@ -1,0 +1,252 @@
+"""Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source under ``csrc/`` is compiled by its own ``nvcc`` process (all
+started together) into a shared library with a plain C interface, for
+``sm_90a``.  The libraries land in ``_build/<hash of the sources>/``, so a
+changed source rebuilds and an unchanged one loads at once.  ``ctypes``
+binds them, with ``c_void_p`` for every pointer and for the stream.
+
+The launchers below check device, dtype, shape and contiguity, allocate
+every output and scratch buffer with ``torch.empty``, launch on the
+current stream and raise if the entry point reports a CUDA error.  Each
+adds one to its entry in :data:`LAUNCHES`, and nothing else does, so a run
+can show which kernels a path went through.  Nothing here is imported or
+built until a CUDA tensor reaches a launcher.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_HERE, "csrc")
+_BUILD = os.path.join(_HERE, "_build")
+SOURCES = ("scan.cu", "teddy.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: launches per kernel since the last :func:`reset_launches`
+LAUNCHES: dict[str, int] = {
+    "fire": 0, "lane_scan": 0, "compact": 0, "verify": 0,
+}
+#: compiler output per source (ptxas register and shared-memory report)
+BUILD_LOG: dict[str, str] = {}
+#: wall seconds of the last build (0.0 when every library was cached)
+BUILD_SECONDS = 0.0
+
+_lock = threading.Lock()
+_libs: Optional[dict[str, ctypes.CDLL]] = None
+
+_P = ctypes.c_void_p
+_I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    "ac_lane_scan": [_P, _I32, _P, _I32, _P, _I64, _P, _I32, _I32, _I32,
+                     _P, _P, _P],
+    "ac_compact": [_P, _I64, _I32, _P, _P, _P, _P, _P],
+    "ac_compact_chunk": [],
+    "ac_fire": [_P, _I32, _P, _I64, _I32, _I32, _I32, _P, _P],
+    "ac_verify": [_P, _I32, _P, _I32, _P, _I64, _P, _I32, _I32, _P, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc") or "",
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> dict[str, ctypes.CDLL]:
+    """Compile (if needed) and load every kernel library."""
+    global _libs, BUILD_SECONDS
+    with _lock:
+        if _libs is not None:
+            return _libs
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in SOURCES:
+            with open(os.path.join(_CSRC, src), "rb") as f:
+                h.update(src.encode() + f.read())
+        out_dir = os.path.join(_BUILD, h.hexdigest()[:16])
+        os.makedirs(out_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        procs = {}
+        for src in SOURCES:
+            so = os.path.join(out_dir, f"lib{src[:-3]}.so")
+            if os.path.exists(so):
+                continue
+            tmp = f"{so}.{os.getpid()}.tmp"
+            procs[src] = (so, tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                 os.path.join(_CSRC, src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ))
+        failed = []
+        for src, (so, tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            BUILD_LOG[src] = out
+            if proc.returncode != 0:
+                failed.append(f"{src}:\n{out}")
+            else:
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        BUILD_SECONDS = time.perf_counter() - t0 if procs else 0.0
+        libs = {}
+        for src in SOURCES:
+            lib = ctypes.CDLL(os.path.join(out_dir, f"lib{src[:-3]}.so"))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name, None)
+                if fn is not None:
+                    fn.argtypes = args
+                    fn.restype = ctypes.c_int
+            libs[src[:-3]] = lib
+        _libs = libs
+        return libs
+
+
+def _check(
+    name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device,
+    ndim: Optional[int] = None,
+) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {kernel} failed with error {err}")
+
+
+def lane_scan(
+    table: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
+    match_count: torch.Tensor, n: int, L: int, T: int, halo: int,
+    use_classes: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2: states int32 [L*T] and match mask uint8 [L*T]."""
+    dev = hay.device
+    if dev.type != "cuda":
+        raise ValueError("lane_scan kernel needs CUDA tensors")
+    _check("table", table, torch.int32, dev, 2)
+    _check("classes", classes, torch.int32, dev, 1)
+    _check("hay", hay, torch.uint8, dev, 1)
+    _check("match_count", match_count, torch.int32, dev, 1)
+    if classes.numel() != 257 or hay.numel() != L * T or halo > T:
+        raise ValueError("lane_scan: bad classes, layout or halo")
+    if not 0 <= n <= L * T:
+        raise ValueError(f"lane_scan: n={n} outside [0, {L * T}]")
+    states = torch.empty(L * T, dtype=torch.int32, device=dev)
+    mask = torch.empty(L * T, dtype=torch.uint8, device=dev)
+    lib = build()["scan"]
+    _raise_on(lib.ac_lane_scan(
+        table.data_ptr(), table.shape[1], classes.data_ptr(),
+        int(use_classes), hay.data_ptr(), n, match_count.data_ptr(),
+        L, T, halo, states.data_ptr(), mask.data_ptr(), _stream(dev),
+    ), "lane_scan")
+    LAUNCHES["lane_scan"] += 1
+    return states, mask
+
+
+def compact(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: ascending indexes int32 [cap] (-1 padded) and total int32 [1]."""
+    dev = mask.device
+    if dev.type != "cuda":
+        raise ValueError("compact kernel needs CUDA tensors")
+    _check("mask", mask, torch.uint8, dev, 1)
+    N = mask.numel()
+    if N >= 1 << 31 or cap < 1:
+        raise ValueError(f"compact: N={N}, cap={cap} out of range")
+    lib = build()["scan"]
+    nb = -(-N // lib.ac_compact_chunk())
+    idx = torch.empty(cap, dtype=torch.int32, device=dev)
+    total = torch.empty(1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * max(nb, 1), dtype=torch.int32, device=dev)
+    _raise_on(lib.ac_compact(
+        mask.data_ptr(), N, cap, idx.data_ptr(), total.data_ptr(),
+        scratch.data_ptr(), scratch[max(nb, 1):].data_ptr(), _stream(dev),
+    ), "compact")
+    LAUNCHES["compact"] += 1
+    return idx, total
+
+
+def fire(
+    tables: torch.Tensor, hay: torch.Tensor, m: int, words: int,
+    passes: int,
+) -> torch.Tensor:
+    """K1: uint8 fire mask, the shape of ``hay``."""
+    dev = hay.device
+    if dev.type != "cuda":
+        raise ValueError("fire kernel needs CUDA tensors")
+    _check("tables", tables, torch.int32, dev, 2)
+    _check("hay", hay, torch.uint8, dev)
+    rows = passes * 2 * m * words
+    if tables.shape != (rows, 128) or rows > 256 or not 1 <= m <= 8:
+        raise ValueError(
+            f"fire: tables {tuple(tables.shape)} do not fit m={m}, "
+            f"words={words}, passes={passes} (at most 256 rows, m <= 8)"
+        )
+    out = torch.empty_like(hay)
+    lib = build()["teddy"]
+    _raise_on(lib.ac_fire(
+        tables.data_ptr(), rows, hay.data_ptr(), hay.numel(), m, words,
+        passes, out.data_ptr(), _stream(dev),
+    ), "fire")
+    LAUNCHES["fire"] += 1
+    return out
+
+
+def verify(
+    vtable: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
+    fire_pos: torch.Tensor, n: int, W: int, use_classes: bool,
+) -> torch.Tensor:
+    """K4: packed walk int32 [cap, W] (next state | has_match << 24)."""
+    dev = hay.device
+    if dev.type != "cuda":
+        raise ValueError("verify kernel needs CUDA tensors")
+    _check("vtable", vtable, torch.int32, dev, 2)
+    _check("classes", classes, torch.int32, dev, 1)
+    _check("hay", hay, torch.uint8, dev, 1)
+    _check("fire_pos", fire_pos, torch.int32, dev, 1)
+    if classes.numel() != 257 or not 0 <= n <= hay.numel() or W < 1:
+        raise ValueError("verify: bad classes, n or W")
+    cap = fire_pos.numel()
+    out = torch.empty((cap, W), dtype=torch.int32, device=dev)
+    lib = build()["teddy"]
+    _raise_on(lib.ac_verify(
+        vtable.data_ptr(), vtable.shape[1], classes.data_ptr(),
+        int(use_classes), hay.data_ptr(), n, fire_pos.data_ptr(), cap, W,
+        out.data_ptr(), _stream(dev),
+    ), "verify")
+    LAUNCHES["verify"] += 1
+    return out

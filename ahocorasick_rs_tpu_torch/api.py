@@ -1,0 +1,840 @@
+"""Public API: ``AhoCorasick`` and ``BytesAhoCorasick``.
+
+Drop-in equivalents of the reference's two matcher classes (upstream
+src/lib.rs:29-33,360-363; typed surface upstream
+pysrc/ahocorasick_rs/ahocorasick_rs.pyi:21-45), with the same constructor
+signature, methods, defaults, error messages and observable match
+semantics.  Device knobs are keyword-only extras: ``backend=`` and
+``device=``.
+
+Execution tiers (picked per call by haystack size, overridable with
+``backend=``):
+
+* ``python``  — sequential goto/fail walk; lowest latency for tiny inputs.
+* ``numpy``   — vectorized halo'd lane scan on the host.
+* ``native``  — the C++ lane scan on the host.
+* ``device``  — lane scan with on-device match compaction on the
+                matcher's torch device (``ops/scan_cuda.py``), or the
+                prefiltered Teddy pipeline (``ops/scan_teddy.py``) when it
+                pays; streams arbitrarily large haystacks.
+
+All tiers produce the identical complete occurrence set; match-kind
+semantics are resolved from it by ``ops.resolve`` (one shared semantics
+engine instead of the reference's per-kind automata).
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import TYPE_CHECKING, Iterable, Optional, Union
+
+import numpy as np
+import torch
+
+if TYPE_CHECKING:
+    from .models.native import DenseScanner
+    from .ops.scan_cuda import DeviceTables
+    from .ops.scan_teddy import TeddyScanner
+
+    if sys.version_info >= (3, 12):
+        from collections.abc import Buffer
+    else:
+        from typing_extensions import Buffer
+
+from .models.automaton import Automaton, build_automaton
+from .models.engine import Implementation, MatchKind, select_engine
+from .ops import resolve as _resolve
+from .ops import scan_host
+from .utils.buffers import as_byte_view, pattern_bytes
+from .utils.codepoints import byte_to_codepoint_prefix
+
+#: haystacks up to this many bytes use the sequential python walk.
+PY_TIER_MAX = 2048
+#: haystacks at least this many bytes go to the device tier.
+DEVICE_TIER_MIN = 1 << 21
+
+#: total pattern chars at or below which patterns are stored by default
+#: (reference heuristic, upstream src/lib.rs:164-184).
+STORE_PATTERNS_THRESHOLD = 4096
+
+
+def _overlapping_error(kind: MatchKind) -> str:
+    """The reference's overlapping-with-leftmost ValueError text.
+
+    The reference surfaces the aho-corasick crate's ``MatchError`` Display
+    verbatim (upstream src/lib.rs:36-39,50-55): the v1.1.4
+    ``UnsupportedOverlapping`` text, where ``{:?}`` of the two MatchKind
+    values prints the bare variant names.
+    """
+    return (
+        "overlapping searches require a searcher with Standard "
+        f"semantics, but this searcher has {kind.name} semantics"
+    )
+
+
+def _resolve_device(
+    device: Union[str, torch.device, None]
+) -> torch.device:
+    """The matcher's device: CUDA unless the caller names another.
+
+    There is no silent CPU fallback: without a card the caller must ask
+    for ``device="cpu"``.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run the "
+                "device tier on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _check_backend(backend: str) -> None:
+    if backend == "sharded":
+        raise NotImplementedError(
+            "backend='sharded' (the multi-GPU scan) is not part of this "
+            "package yet"
+        )
+
+
+class _MatcherBase:
+    """Shared construction + scan/resolve pipeline for both matchers."""
+
+    _automaton: Automaton
+    _matchkind: MatchKind
+    _implementation: Implementation
+    _device: torch.device
+    _backend: str
+    _byte_patterns: list[bytes]
+    _device_tables = None
+    _teddy = None
+    _teddy_state = "auto"  # "auto" | "off" | "force"
+    _counters = None  # scan observability, created on first scan
+    _last_backend = None  # execution tier chosen by the latest scan
+    _tier_bps: dict  # measured bytes/s EMA per tier group (host/device)
+    _probe_ctr = 0  # device-eligible auto scans seen (for re-probing)
+
+    #: bounded host-tier probe size for the router's first comparison
+    #: sample — a few MB is enough for a stable bytes/s estimate and
+    #: costs tens of ms even on the slowest host tier, instead of
+    #: routing one entire device-eligible request (possibly multi-GB)
+    #: to the host just to collect the comparison sample.
+    _HOST_PROBE_BYTES = 4 << 20
+
+    def _probe_host(self, hay: np.ndarray) -> None:
+        """Fill the router's host-tier EMA from a bounded sample scan."""
+        probe = hay[: self._HOST_PROBE_BYTES]
+        backend = "native" if self._native_ok() else "numpy"
+        t0 = time.perf_counter()
+        self._host_scan(probe, backend)
+        dt = time.perf_counter() - t0
+        if dt > 0:
+            self._tier_bps["host"] = len(probe) / dt
+
+    def _auto_device_ok(
+        self, n: int, probe: Optional[np.ndarray] = None
+    ) -> bool:
+        """Should an auto-routed scan of ``n`` bytes use the device tier?
+
+        Two gates.  Amortization: the device-table upload must be paid
+        for (:meth:`_device_amortized`).  Measured throughput: once both
+        tier groups have measurements, route to the faster one — with a
+        1.2x hysteresis band and a re-probe of the losing device tier
+        every 8th eligible scan so a transient slow measurement (cold
+        kernel build, busy card) cannot lock the router out of the
+        device permanently.  A missing host sample is collected by a
+        *bounded* probe scan over a slice of ``probe``
+        (:meth:`_probe_host`) — never by routing the full request to the
+        host tier.  The probe counter advances once per scan (in
+        ``_find``), never here: the prefiltered gate and the dense gate of
+        one scan must see the same decision.
+        """
+        if not self._device_amortized(n):
+            return False
+        host = self._tier_bps.get("host")
+        dev = self._tier_bps.get("device")
+        if dev is None:
+            return True  # explore the device tier first
+        if host is None:
+            if probe is not None and len(probe):
+                self._probe_host(probe)
+                host = self._tier_bps.get("host")
+            if host is None:
+                return False  # no probe material: sample on this scan
+        if dev * 1.2 < host and self._probe_ctr % 8 != 0:
+            return False
+        return True
+
+    #: execution tiers grouped for the measured-throughput router
+    _HOST_TIERS = frozenset(("python", "numpy", "native", "native_resolve"))
+
+    def _note_scan(self, nbytes: int, seconds: float) -> None:
+        """Accumulate scan-throughput counters."""
+        c = self._counters
+        if c is None:
+            c = self._counters = {
+                "scan_calls": 0,
+                "scan_bytes": 0,
+                "scan_seconds": 0.0,
+            }
+        c["scan_calls"] += 1
+        c["scan_bytes"] += nbytes
+        c["scan_seconds"] += seconds
+        # per-tier-group throughput EMA feeding the adaptive auto router;
+        # only device-tier-sized scans are comparable signals
+        if seconds > 0 and nbytes >= DEVICE_TIER_MIN:
+            group = (
+                "host" if self._last_backend in self._HOST_TIERS
+                else "device"
+            )
+            bps = nbytes / seconds
+            prev = self._tier_bps.get(group)
+            self._tier_bps[group] = (
+                bps if prev is None else 0.5 * prev + 0.5 * bps
+            )
+
+    def _build(
+        self,
+        byte_patterns: list[bytes],
+        matchkind: MatchKind,
+        implementation: Optional[Implementation],
+        backend: str,
+        device: Union[str, torch.device, None],
+    ) -> None:
+        if not isinstance(matchkind, MatchKind):
+            raise TypeError(
+                f"matchkind must be a MatchKind, not {matchkind!r}"
+            )
+        if implementation is not None and not isinstance(
+            implementation, Implementation
+        ):
+            raise TypeError(
+                "implementation must be an Implementation or None, "
+                f"not {implementation!r}"
+            )
+        _check_backend(backend)
+        self._tier_bps = {}
+        self._backend = backend
+        self._device = _resolve_device(device)
+        self._matchkind = matchkind
+        self._byte_patterns = byte_patterns
+        self._automaton = build_automaton(byte_patterns)
+        self._implementation = (
+            implementation
+            if implementation is not None
+            else select_engine(self._automaton, self._device)
+        )
+        # Materialise the engine's tables eagerly, like the reference's
+        # builder does, so construction cost lands in __init__.
+        am = self._automaton
+        if self._implementation is Implementation.DFA:
+            am.delta
+        elif self._implementation is Implementation.ContiguousNFA:
+            am.delta_classed
+        else:
+            am.sparse
+
+    # -- scanning ------------------------------------------------------
+    def _scan(self, hay: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Return matched (positions, states) for a uint8 haystack array."""
+        n = len(hay)
+        am = self._automaton
+        backend = self._backend
+        if backend == "auto":
+            if n < DEVICE_TIER_MIN or not self._auto_device_ok(n, hay):
+                backend = "native" if self._native_ok() else (
+                    "python" if n <= PY_TIER_MAX else "numpy"
+                )
+            else:
+                backend = "device"
+        if (
+            backend == "device"
+            and self._backend == "auto"
+            and self._implementation is Implementation.NoncontiguousNFA
+        ):
+            # Auto-routed sparse scans stay on the host; only an explicit
+            # backend="device" asks for the sparse engine on the device.
+            backend = "numpy" if not self._native_ok() else "native"
+        self._last_backend = backend
+        if backend in ("native", "python", "numpy"):
+            return self._host_scan(hay, backend)
+        # device tier
+        from .ops import scan_cuda
+
+        return scan_cuda.scan_device(am, hay, self._get_device_tables())
+
+    def _host_scan(
+        self, hay: np.ndarray, backend: str
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Dispatch one host-tier scan (no routing, no tier bookkeeping)."""
+        am = self._automaton
+        if backend == "native":
+            return self._get_native_scanner().scan(hay)
+        if backend == "python":
+            return scan_host.scan_python(am, hay.tobytes())
+        impl = self._implementation
+        if impl is Implementation.DFA:
+            return scan_host.scan_numpy_lanes(am, hay)
+        if impl is Implementation.ContiguousNFA:
+            return scan_host.scan_numpy_lanes(
+                am,
+                hay,
+                table=am.delta_classed,
+                classes=am.byte_classes,
+            )
+        return scan_host.scan_numpy_sparse(am, hay)
+
+    _native_ok_cache: Optional[bool] = None
+    _native_scanner = None
+
+    def _native_ok(self) -> bool:
+        """Native host scan usable for this matcher's engine?
+
+        Library availability is cached; the sparse engine's table
+        condition is re-checked every time — a classed table materialized
+        after the first scan must make the native walk eligible.
+        """
+        ok = self._native_ok_cache
+        if ok is None:
+            from .models import native as _native
+
+            ok = self._native_ok_cache = _native.available()
+        if not ok:
+            return False
+        if self._implementation is Implementation.NoncontiguousNFA:
+            # honor the sparse engine's low-memory contract: only use the
+            # native walk if a dense/classed table already exists
+            return self._automaton._delta_classed is not None
+        return True
+
+    def _get_native_scanner(self) -> "DenseScanner":
+        """Per-matcher native scanner (cached table pointers + buffers)."""
+        if self._native_scanner is None:
+            from .models import native as _native
+
+            am = self._automaton
+            if self._implementation is not Implementation.DFA and (
+                self._implementation is Implementation.ContiguousNFA
+                or am._delta_classed is not None
+            ):
+                self._native_scanner = _native.DenseScanner(
+                    am.delta_classed, am.match_count,
+                    classes=am.byte_classes,
+                    halo=am.max_len - 1,
+                )
+            else:
+                self._native_scanner = _native.DenseScanner(
+                    am.delta, am.match_count, halo=am.max_len - 1
+                )
+        return self._native_scanner
+
+    # -- prefiltered (Teddy) path --------------------------------------
+    def _get_teddy(self) -> Optional[TeddyScanner]:
+        """Build (once) and return the TeddyScanner, or None if unfit."""
+        if self._implementation is Implementation.NoncontiguousNFA:
+            return None
+        if self._teddy is None:
+            from .models.prefilter import build_prefilter
+            from .ops.scan_teddy import TeddyScanner
+
+            pf = build_prefilter(self._byte_patterns)
+            if pf is None or (
+                self._teddy_state == "auto" and pf.est_fire_rate > 0.05
+            ):
+                self._teddy_state = "off"
+                return None
+            tables = self._get_device_tables()
+            self._teddy = TeddyScanner(
+                self._automaton,
+                pf,
+                tables.table,
+                tables.classes,
+                tables.match_count,
+                tables.use_classes,
+            )
+        return self._teddy
+
+    #: prefiltered pipelines address positions as int32 and do not segment
+    #: past SEG_BYTES windows of one staged layout (unlike scan_device);
+    #: larger inputs use the dense/segmented tier
+    _TEDDY_MAX_BYTES = (1 << 31) - (1 << 24)
+
+    def _teddy_wanted(
+        self, n: int, probe: Optional[np.ndarray] = None
+    ) -> bool:
+        """Should the prefiltered device pipeline serve ``n`` bytes?"""
+        if self._teddy_state == "off" or n > self._TEDDY_MAX_BYTES:
+            return False
+        if self._teddy_state == "force":
+            return True
+        return (
+            self._backend in ("auto", "device")
+            and n >= DEVICE_TIER_MIN
+            and (
+                self._backend != "auto"
+                or self._auto_device_ok(n, probe)
+            )
+            and self._device.type == "cuda"
+        )
+
+    def _try_teddy(
+        self, hay: np.ndarray
+    ) -> Optional[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Return the complete occurrence set via the prefiltered scan, or
+        None when the prefilter is off/unprofitable for this matcher.
+        Sets ``last_backend``."""
+        if not self._teddy_wanted(len(hay), hay):
+            return None
+        if self._get_teddy() is None:
+            return None
+        occ = self._teddy.occurrences_streamed(hay)
+        self._last_backend = "teddy"
+        if occ is None:
+            # observed fire rate too high on this corpus — stop trying
+            self._teddy_state = "off"
+        return occ
+
+    def _device_amortized(self, n: int) -> bool:
+        """Is the device-table upload already paid for, or worth paying?
+
+        Huge automata cost far more to stage into device memory than a
+        host scan of a modest haystack costs outright; auto routing
+        therefore stays on the host tiers until this matcher's cumulative
+        scanned bytes (the ``stats()`` counter) plus the current request
+        reach the table size, at which point the upload amortizes.  Forced
+        backends (``backend="device"``) bypass this entirely, and once the
+        tables are resident the device tier is always preferred.
+        """
+        if self._device_tables is not None:
+            return True
+        am = self._automaton
+        if self._implementation is Implementation.DFA:
+            table_bytes = am.num_states * 257 * 4
+        elif self._implementation is Implementation.ContiguousNFA:
+            table_bytes = am.num_states * am.num_classes * 4
+        else:
+            table_bytes = am.edge_keys.nbytes + am.edge_targets.nbytes
+        seen = (self._counters or {}).get("scan_bytes", 0)
+        return seen + n >= table_bytes
+
+    def _get_device_tables(self) -> "DeviceTables":
+        from .ops import scan_cuda
+
+        if self._device_tables is None:
+            engine = {
+                Implementation.DFA: "dfa",
+                Implementation.ContiguousNFA: "classed",
+                Implementation.NoncontiguousNFA: "sparse",
+            }[self._implementation]
+            self._device_tables = scan_cuda.DeviceTables(
+                self._automaton, engine, self._device
+            )
+        return self._device_tables
+
+    #: host-tier scans at or past this size stream segment-by-segment
+    #: (bounded peak memory even on match-dense adversarial corpora)
+    _STREAM_MIN = 64 << 20
+    #: haystack bytes per streamed scan segment
+    _STREAM_SEG = 16 << 20
+    #: occurrence budget per expand+resolve chunk within a segment
+    _STREAM_OCC = 8 << 20
+
+    def _stream_backend(self, hay: np.ndarray) -> Optional[str]:
+        """Host-tier backend name when this scan should stream, else None.
+
+        Mirrors ``_scan``'s routing for the host-bound cases: explicit
+        host backends, auto scans the throughput router keeps on the
+        host, and the sparse engine's auto host fallback.  The device tier
+        returns None — it segments on the device and its compacted
+        outputs are match-sized, not occurrence-sized.
+        """
+        if len(hay) < self._STREAM_MIN:
+            return None
+        b = self._backend
+        host = "native" if self._native_ok() else "numpy"
+        if b in ("python", "numpy", "native"):
+            return b
+        sparse = self._implementation is Implementation.NoncontiguousNFA
+        if b == "auto":
+            if not self._auto_device_ok(len(hay), hay):
+                return host
+            return host if sparse else None
+        return None
+
+    def _find_streaming(
+        self, hay: np.ndarray, backend: str, overlapping: bool
+    ) -> list[tuple[int, int, int]]:
+        """Segment-streamed host scan + resolve with bounded memory.
+
+        An AC state depends on at most the last ``max_len - 1`` bytes,
+        so each segment is scanned from the root with that halo of left
+        context and only positions inside the segment are kept — the
+        same exactness argument as the lane scans
+        (``models/automaton.py``).  Occurrence expansion is chunked by
+        occurrence COUNT (not positions), so nested pattern sets over
+        repetitive corpora — ``["a","aa",...,"a"*64]`` over gigabytes of
+        ``"a"`` — peak at O(kept + _STREAM_OCC) instead of
+        O(n * nesting) (the reference's walk is O(n) there, upstream
+        src/lib.rs:59).
+        """
+        am = self._automaton
+        halo = am.max_len - 1
+        res = _resolve.StreamResolver(
+            self._matchkind.value, overlapping, am.max_len
+        )
+        n = len(hay)
+        self._last_backend = backend
+        if backend == "native" and not overlapping:
+            # Cheap density probe on a 1MB slice: match-dense corpora
+            # (>1/16 of positions matching) route to the fused native
+            # resolver, which walks the haystack ONCE carrying the
+            # greedy restart cursor — O(output + max_len) memory and
+            # O(n) work, the reference's own complexity class.
+            probe_n = min(n, 1 << 20)
+            pos0, _ = self._host_scan(hay[:probe_n], backend)
+            if len(pos0) * 16 > probe_n:
+                return self._native_resolve_scan(hay)
+        for s0 in range(0, n, self._STREAM_SEG):
+            s1 = min(n, s0 + self._STREAM_SEG)
+            lo = max(0, s0 - halo)
+            pos, st = self._host_scan(hay[lo:s1], backend)
+            if lo:
+                k = int(np.searchsorted(pos, s0 - lo))
+                pos, st = pos[k:] + lo, st[k:]
+            if not len(pos):
+                continue
+            self._feed_occurrences(res, pos, st)
+        return res.result()
+
+    def _feed_occurrences(
+        self,
+        res: "_resolve.StreamResolver",
+        pos: np.ndarray,
+        st: np.ndarray,
+    ) -> None:
+        """Expand (positions, states) into ``res`` in occurrence-count-
+        bounded chunks (peak memory O(_STREAM_OCC), not O(total))."""
+        am = self._automaton
+        cnt = am.match_count[st.astype(np.int64)].astype(np.int64)
+        cs = np.cumsum(cnt)
+        i0 = 0
+        while i0 < len(pos):
+            base = int(cs[i0 - 1]) if i0 else 0
+            i1 = int(
+                np.searchsorted(cs, base + self._STREAM_OCC, side="right")
+            )
+            i1 = max(i1, i0 + 1)
+            pids, starts, ends = _resolve.expand_occurrences(
+                am, pos[i0:i1], st[i0:i1]
+            )
+            res.feed(pids, starts, ends, int(pos[i1 - 1]) + 1)
+            i0 = i1
+
+    def _dense_host_fallback(
+        self, hay: np.ndarray, overlapping: bool
+    ) -> list[tuple[int, int, int]]:
+        """Re-route after a device-tier :class:`MatchDenseError` bailout."""
+        host = "native" if self._native_ok() else "numpy"
+        if host == "native" and not overlapping:
+            return self._native_resolve_scan(hay)
+        return self._find_streaming(hay, host, overlapping)
+
+    #: lazily-built leftmost pruned table (delta_lm, bestlen, bestpid);
+    #: False when the automaton is too large for the extra layout
+    _leftmost_tables = None
+    #: extra-table budget for the leftmost pruned layout
+    _LEFTMOST_TABLE_MAX = 256 << 20
+
+    def _get_leftmost_tables(self) -> Optional[tuple]:
+        """The leftmost-priority pruned automaton (built once).
+
+        A dense ``[S+1, 257]`` table whose failure transitions are pruned
+        so the walk DIES when the recorded leftmost candidate is final —
+        making leftmost scans O(n + matches * max_len) instead of
+        O(occurrences).  Construction re-runs the native trie build from
+        the raw patterns, paid only when a leftmost matcher actually hits
+        the match-dense path.
+        """
+        if self._leftmost_tables is None:
+            from .models import native as _native
+
+            am = self._automaton
+            if (am.num_states + 1) * 257 * 4 > self._LEFTMOST_TABLE_MAX:
+                self._leftmost_tables = False  # ring resolver instead
+            else:
+                delta_lm = _native.build_leftmost_table(
+                    self._byte_patterns
+                )
+                bl, bp = _native.leftmost_best(am)
+                self._leftmost_tables = (delta_lm, bl, bp)
+        return self._leftmost_tables or None
+
+    def _native_resolve_scan(
+        self, hay: np.ndarray
+    ) -> list[tuple[int, int, int]]:
+        """Fused native scan+resolve over the whole haystack."""
+        from .models import native as _native
+
+        am = self._automaton
+        kind = self._matchkind.value
+        if kind in ("leftmost_first", "leftmost_longest"):
+            lt = self._get_leftmost_tables()
+            if lt is not None:
+                delta_lm, bl, bp = lt
+                p, s, e = _native.resolve_leftmost_native(
+                    delta_lm, bl, bp, hay, kind
+                )
+                self._last_backend = "native_resolve"
+                return list(zip(p.tolist(), s.tolist(), e.tolist()))
+        if self._implementation is not Implementation.DFA and (
+            self._implementation is Implementation.ContiguousNFA
+            or am._delta_classed is not None
+        ):
+            p, s, e = _native.resolve_scan_native(
+                am,
+                hay,
+                self._matchkind.value,
+                classes=am.byte_classes,
+                delta=am.delta_classed,
+            )
+        else:
+            p, s, e = _native.resolve_scan_native(
+                am, hay, self._matchkind.value
+            )
+        self._last_backend = "native_resolve"
+        return list(zip(p.tolist(), s.tolist(), e.tolist()))
+
+    def _find(
+        self, hay: np.ndarray, overlapping: bool
+    ) -> list[tuple[int, int, int]]:
+        if overlapping and self._matchkind is not MatchKind.Standard:
+            raise ValueError(_overlapping_error(self._matchkind))
+        if self._backend == "auto" and len(hay) >= DEVICE_TIER_MIN:
+            self._probe_ctr += 1  # one router tick per scan
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("ahocorasick:scan"):
+            occ = self._try_teddy(hay)  # sets last_backend on success
+            if occ is None:
+                stream = self._stream_backend(hay)
+                if stream is not None:
+                    out = self._find_streaming(hay, stream, overlapping)
+                    self._note_scan(len(hay), time.perf_counter() - t0)
+                    return out
+                try:
+                    positions, states = self._scan(hay)
+                except _resolve.MatchDenseError:
+                    # device-tier density bailout: the host resolvers own
+                    # this regime (O(n) fused walk / streamed resolve).
+                    # Record a floor device throughput so the next auto
+                    # scan of this matcher goes host-first instead of
+                    # re-staging the corpus to the device (the EMA
+                    # self-heals through the periodic re-probe).
+                    if self._backend == "auto":
+                        self._tier_bps["device"] = min(
+                            self._tier_bps.get("device", 1.0), 1.0
+                        )
+                    out = self._dense_host_fallback(hay, overlapping)
+                    self._note_scan(len(hay), time.perf_counter() - t0)
+                    return out
+                if len(positions) <= _resolve._SMALL_THRESHOLD:
+                    # fused expand+resolve, no numpy dispatch overhead —
+                    # the common per-document case (a handful of matches)
+                    out = _resolve.resolve_from_scan_small(
+                        self._automaton,
+                        positions,
+                        states,
+                        self._matchkind.value,
+                        overlapping,
+                    )
+                    self._note_scan(len(hay), time.perf_counter() - t0)
+                    return out
+                occ_total = int(
+                    self._automaton.match_count[states.astype(np.int64)]
+                    .astype(np.int64)
+                    .sum()
+                )
+                if occ_total > 4 * self._STREAM_OCC:
+                    # big occurrence set from a non-streamed scan: the
+                    # fused native resolver re-walks the haystack in
+                    # O(n) instead of expanding O(occ_total); without it
+                    # (or for overlapping output) chunk the expansion
+                    if not overlapping and self._native_ok():
+                        out = self._native_resolve_scan(hay)
+                    else:
+                        res = _resolve.StreamResolver(
+                            self._matchkind.value,
+                            overlapping,
+                            self._automaton.max_len,
+                        )
+                        self._feed_occurrences(res, positions, states)
+                        out = res.result()
+                    self._note_scan(len(hay), time.perf_counter() - t0)
+                    return out
+                occ = _resolve.expand_occurrences(
+                    self._automaton, positions, states
+                )
+        pids, starts, ends = occ
+        with torch.profiler.record_function("ahocorasick:resolve"):
+            out = _resolve.resolve(
+                pids,
+                starts,
+                ends,
+                kind=self._matchkind.value,
+                overlapping=overlapping,
+            )
+        self._note_scan(len(hay), time.perf_counter() - t0)
+        return out
+
+    # -- observability -------------------------------------------------
+    def stats(self) -> dict:
+        """Compile-time + runtime statistics.
+
+        Compile-time: states, table bytes, engine chosen.  Runtime
+        (cumulative over this matcher's scans): ``scan_calls``,
+        ``scan_bytes``, ``scan_seconds``, derived ``scan_bytes_per_second``
+        and the execution tier the latest scan used (``last_backend``).
+        """
+        s = self._automaton.stats()
+        s["implementation"] = self._implementation.name
+        s["matchkind"] = self._matchkind.name
+        c = self._counters or {
+            "scan_calls": 0,
+            "scan_bytes": 0,
+            "scan_seconds": 0.0,
+        }
+        s.update(c)
+        s["scan_bytes_per_second"] = (
+            c["scan_bytes"] / c["scan_seconds"]
+            if c["scan_seconds"] > 0
+            else 0.0
+        )
+        s["last_backend"] = self._last_backend
+        s["tier_bytes_per_second"] = dict(self._tier_bps)
+        s["device"] = str(self._device)
+        return s
+
+
+class AhoCorasick(_MatcherBase):
+    """Multi-pattern string matcher over ``str`` haystacks.
+
+    Matches the reference class (upstream src/lib.rs:134-272): match
+    indexes are in *code points*, not bytes (upstream src/lib.rs:74-75).
+
+    Extras (keyword-only): ``backend=`` forces an execution tier;
+    ``device=`` names the torch device of the device tier (default
+    ``"cuda"``; without a card the caller must pass ``"cpu"``).
+    """
+
+    def __init__(
+        self,
+        patterns: Iterable[str],
+        matchkind: MatchKind = MatchKind.Standard,
+        store_patterns: Optional[bool] = None,
+        implementation: Optional[Implementation] = None,
+        *,
+        backend: str = "auto",
+        device: Union[str, torch.device, None] = None,
+    ) -> None:
+        byte_patterns: list[bytes] = []
+        originals: list[str] = []
+        total_chars = 0
+        for p in patterns:
+            if not isinstance(p, str):
+                # PyO3's cast_into::<PyString> downcast error, surfaced
+                # verbatim by the reference (upstream src/lib.rs:149)
+                raise TypeError(
+                    f"'{type(p).__name__}' object cannot be converted to "
+                    "'PyString'"
+                )
+            if not p:
+                raise ValueError(
+                    "You passed in an empty string as a pattern"
+                )
+            originals.append(p)
+            total_chars += len(p)
+            byte_patterns.append(p.encode("utf-8"))
+        if store_patterns is None:
+            store_patterns = total_chars <= STORE_PATTERNS_THRESHOLD
+        self._patterns: Optional[list[str]] = (
+            originals if store_patterns else None
+        )
+        self._build(byte_patterns, matchkind, implementation, backend, device)
+
+    def find_matches_as_indexes(
+        self, haystack: str, overlapping: bool = False
+    ) -> list[tuple[int, int, int]]:
+        """All matches as ``(pattern_index, start, end)`` code-point tuples."""
+        if not isinstance(haystack, str):
+            # PyO3's argument-extraction TypeError for `haystack: &str`
+            # (upstream src/lib.rs:230,254)
+            raise TypeError(
+                f"argument 'haystack': '{type(haystack).__name__}' object "
+                "cannot be converted to 'PyString'"
+            )
+        data = haystack.encode("utf-8")
+        hay = np.frombuffer(data, dtype=np.uint8)
+        matches = self._find(hay, overlapping)
+        if not matches:
+            return []
+        if len(data) == len(haystack):  # pure ASCII: byte index == cp index
+            return matches
+        cp = byte_to_codepoint_prefix(hay)
+        return [(p, int(cp[s]), int(cp[e])) for (p, s, e) in matches]
+
+    def find_matches_as_strings(
+        self, haystack: str, overlapping: bool = False
+    ) -> list[str]:
+        """All matches as their pattern strings.
+
+        Uses stored pattern objects when available, else slices the haystack
+        (both arms produce equal values — reference upstream
+        src/lib.rs:263-271).
+        """
+        if not isinstance(haystack, str):
+            raise TypeError(
+                f"argument 'haystack': '{type(haystack).__name__}' object "
+                "cannot be converted to 'PyString'"
+            )
+        data = haystack.encode("utf-8")
+        hay = np.frombuffer(data, dtype=np.uint8)
+        matches = self._find(hay, overlapping)
+        if self._patterns is not None:
+            return [self._patterns[p] for (p, _, _) in matches]
+        return [data[s:e].decode("utf-8") for (_, s, e) in matches]
+
+
+class BytesAhoCorasick(_MatcherBase):
+    """Multi-pattern matcher over bytes-like haystacks.
+
+    Matches the reference class (upstream src/lib.rs:360-434): patterns
+    and haystacks are buffer-protocol objects, returned indexes are raw
+    byte offsets, and there is no ``find_matches_as_strings``.
+    """
+
+    def __init__(
+        self,
+        patterns: "Iterable[Buffer]",
+        matchkind: MatchKind = MatchKind.Standard,
+        implementation: Optional[Implementation] = None,
+        *,
+        backend: str = "auto",
+        device: Union[str, torch.device, None] = None,
+    ) -> None:
+        byte_patterns: list[bytes] = []
+        for p in patterns:
+            bp = pattern_bytes(p)
+            if not bp:
+                raise ValueError("You passed in an empty pattern")
+            byte_patterns.append(bp)
+        self._build(byte_patterns, matchkind, implementation, backend, device)
+
+    def find_matches_as_indexes(
+        self, haystack: "Buffer", overlapping: bool = False
+    ) -> list[tuple[int, int, int]]:
+        """All matches as ``(pattern_index, start, end)`` byte tuples."""
+        hay = as_byte_view(haystack)
+        return self._find(hay, overlapping)

@@ -1,0 +1,406 @@
+"""Prefiltered scan: Teddy fire kernel + exact windowed verification.
+
+Pipeline (device):
+
+1. **Fire kernel** (K1, ``csrc/teddy.cu``): the haystack, staged as
+   ``[R, 128]`` row-major (position = row*128 + lane), is tested position
+   by position against Teddy's ``AND_k tables_k[h[i+k]]`` for every pass.
+   Only the last ``m-1`` positions of the staged buffer, whose next bytes
+   do not exist, are force-fired; verification discards false fires, so
+   that can only over-fire, never miss.
+2. **Compaction** (K3): the fire mask is OR-reduced over ``COARSE``-byte
+   groups and the fired groups are compacted on the device (capacity +
+   exact-count retry, as in ``scan_cuda``).
+3. **Verification** (K4): every fired group start ``i`` is a candidate
+   match start.  The window ``hay[i : i+W]`` is walked from the root with
+   the engine's transition table; a window match of length ``j`` at step
+   ``j`` has start exactly ``i``.  Each true occurrence fires at its start,
+   lands in exactly one window, and is emitted exactly once.
+
+The result is the complete occurrence set (pids, starts, ends) in canonical
+(end asc, len desc, pid asc) order — identical to the dense scan's output.
+Each kernel has a plain PyTorch version beside its wrapper, which the
+wrapper takes for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from ..models.automaton import Automaton, PAD_BYTE
+from ..models.prefilter import Prefilter
+from .scan_cuda import compact_sparse, to_device
+
+#: staged rows per block of the layout (``stage`` pads the row count to a
+#: power of two of at least this many rows once the haystack reaches it)
+BLOCK_ROWS = 512
+
+
+def _fire_mask_plain(
+    tables: torch.Tensor, hay2d: torch.Tensor, m: int, words: int,
+    passes: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of K1 (same bits, one position per element)."""
+    h = hay2d.reshape(-1)
+    N = h.numel()
+    hp = torch.cat([h, h.new_zeros(m - 1)]).long()
+    lo, hi = hp & 15, hp >> 4
+    t = tables[:, :16]
+    fire = torch.ones(N, dtype=torch.bool, device=h.device)
+    for p in range(passes):
+        hit = torch.zeros(N, dtype=torch.bool, device=h.device)
+        for w in range(words):
+            acc = None
+            for k in range(m):
+                r = ((p * m + k) * 2) * words + w
+                term = t[r][lo[k : k + N]] & t[r + words][hi[k : k + N]]
+                acc = term if acc is None else acc & term
+            hit |= acc != 0
+        fire &= hit
+    fire[max(0, N - (m - 1)) :] = True
+    return fire.to(torch.uint8).view_as(hay2d)
+
+
+def fire_mask(
+    tables: torch.Tensor,
+    hay2d: torch.Tensor,
+    m: int,
+    words: int,
+    passes: int = 1,
+) -> torch.Tensor:
+    """K1: uint8 [Rtot, 128] fire mask for a row-major haystack layout,
+    all ``passes`` AND-combined."""
+    if hay2d.device.type == "cpu":
+        return _fire_mask_plain(tables, hay2d, m, words, passes)
+    return _kernels.fire(tables, hay2d, m, words, passes)
+
+
+#: bit position where the verify table carries the "next state has matches"
+#: flag; states must stay below this (automata that large use the sparse
+#: engine, which never builds a Teddy scanner).
+FLAG_SHIFT = 24
+
+
+def _verify_walk_plain(
+    vtable: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
+    fire_pos: torch.Tensor, n: int, W: int, use_classes: bool,
+) -> torch.Tensor:
+    """Plain PyTorch version of K4: one vectorised step per window column."""
+    fp = fire_pos.long()
+    col = torch.arange(W, device=hay.device)
+    src = fp.clamp(min=0)[:, None] + col[None, :]
+    invalid = (src >= n) | (fp[:, None] < 0)
+    ext = hay[src.clamp(max=max(hay.numel() - 1, 0))].long()
+    ext = torch.where(invalid, PAD_BYTE, ext)
+    if use_classes:
+        ext = classes.long()[ext]
+    ncols = vtable.shape[1]
+    flat = vtable.reshape(-1)
+    s = torch.zeros(fp.numel(), dtype=torch.long, device=hay.device)
+    out = torch.empty((fp.numel(), W), dtype=torch.int32, device=hay.device)
+    for j in range(W):
+        v = flat[s * ncols + ext[:, j]]
+        out[:, j] = v
+        s = (v & ((1 << FLAG_SHIFT) - 1)).long()
+    return out
+
+
+def verify_walk(
+    vtable: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
+    fire_pos: torch.Tensor, n: int, W: int, use_classes: bool,
+) -> torch.Tensor:
+    """K4: packed walk int32 [cap, W] (next state | has_match << 24) of
+    the W-byte windows starting at ``fire_pos`` (-1 = empty window)."""
+    if hay.device.type == "cpu":
+        return _verify_walk_plain(
+            vtable, classes, hay, fire_pos, n, W, use_classes
+        )
+    return _kernels.verify(vtable, classes, hay, fire_pos, n, W, use_classes)
+
+
+def _verify_body(
+    vtable: torch.Tensor,
+    classes: torch.Tensor,
+    hay: torch.Tensor,
+    fire_pos: torch.Tensor,
+    n: int,
+    W: int,
+    cap2: int,
+    use_classes: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Walk W-byte windows from each fire position; compact match steps.
+
+    ``vtable`` packs ``has_match`` into bit FLAG_SHIFT of every transition
+    (see :class:`TeddyScanner`), so the walk yields the match flag with
+    the next state.  fire_pos: int32 [M] (-1 padded).  Returns
+    (win_idx[cap2], step[cap2], state[cap2], total).
+    """
+    packed = verify_walk(vtable, classes, hay, fire_pos, n, W, use_classes)
+    matched = packed.reshape(-1) >= (1 << FLAG_SHIFT)
+    sel, total = compact_sparse(matched, cap2)
+    win = torch.where(sel >= 0, sel // W, -1)
+    step = torch.where(sel >= 0, sel % W, 0)
+    st = packed.reshape(-1)[sel.clamp(min=0).long()] & (
+        (1 << FLAG_SHIFT) - 1
+    )
+    return win, step, st, total
+
+
+#: haystack bytes per coarse verification group.  The per-byte fire mask is
+#: OR-reduced over groups of this size before compaction, so position
+#: extraction runs over N/COARSE elements and each verification window
+#: covers COARSE candidate starts at once.
+COARSE = 32
+#: chunk width of the verification window gather in the JAX package; kept
+#: so that both packages stage the same shapes (must divide COARSE).
+VCHUNK = 32 if COARSE % 32 == 0 else 16
+
+
+def _fire_verify(
+    tables: torch.Tensor,
+    vtable: torch.Tensor,
+    classes: torch.Tensor,
+    hay2d: torch.Tensor,
+    n: int,
+    cap: int,
+    cap2: int,
+    m: int,
+    words: int,
+    passes: int,
+    W: int,
+    use_classes: bool,
+) -> tuple[torch.Tensor, ...]:
+    """Fire + coarse compact + verify, with no host round trip between.
+
+    ``W`` is the *window* length (max_len + COARSE - 1); the host keeps
+    only matches whose start falls inside the window's group.  Results are
+    only trustworthy when ``ftotal <= cap`` and ``mtotal <= cap2`` — the
+    caller retries with larger capacities otherwise.
+    """
+    mask = fire_mask(tables, hay2d, m, words, passes).reshape(-1)
+    G = mask.numel() // COARSE
+    grp = mask.view(G, COARSE).amax(dim=1)
+    gidx = torch.arange(G, device=mask.device)
+    fired = (grp != 0) & (gidx * COARSE < n)
+    fire_grp, ftotal = compact_sparse(fired, cap)
+    fire_pos = torch.where(fire_grp >= 0, fire_grp * COARSE, -1)
+    win, step, st, mtotal = _verify_body(
+        vtable, classes, hay2d.reshape(-1), fire_pos, n, W, cap2,
+        use_classes,
+    )
+    return fire_pos, ftotal, win, step, st, mtotal
+
+
+def _bucket(x: int, lo: int = 1024) -> int:
+    b = lo
+    while b < x:
+        b <<= 1
+    return b
+
+
+def expand_verified(
+    am: Automaton,
+    ws: np.ndarray,
+    step: np.ndarray,
+    st: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host CSR expansion of verified window matches (unsorted).
+
+    ``ws[i]`` is window ``i``'s (COARSE-aligned) start, ``step[i]`` the
+    0-based walk step whose state ``st[i]`` had matches.  Expands each
+    state's match CSR and keeps only matches whose start lies inside the
+    window's COARSE group — each true occurrence fires at its start, so it
+    is kept by exactly one window.
+    """
+    cnt = am.match_count[st].astype(np.int64)
+    tot = int(cnt.sum())
+    if tot == 0:
+        z = np.zeros(0, dtype=np.int64)
+        return z.astype(np.int32), z, z
+    rep = np.repeat(np.arange(len(st)), cnt)
+    csum = np.cumsum(cnt)
+    inner = np.arange(tot, dtype=np.int64) - np.repeat(csum - cnt, cnt)
+    flat_csr = am.match_offsets[st[rep]] + inner
+    pids = am.match_pids[flat_csr]
+    lens = am.match_lens[flat_csr]
+    wsr = ws[rep]
+    ends = wsr + step[rep] + 1
+    starts = ends - lens
+    keep = (starts >= wsr) & (starts < wsr + COARSE)
+    return pids[keep].astype(np.int32), starts[keep], ends[keep]
+
+
+class TeddyScanner:
+    """Per-automaton prefiltered scanner (device tables + adaptive state)."""
+
+    def __init__(
+        self,
+        am: Automaton,
+        pf: Prefilter,
+        table: torch.Tensor,
+        classes: torch.Tensor,
+        match_count: torch.Tensor,
+        use_classes: bool,
+    ) -> None:
+        if am.num_states >= (1 << FLAG_SHIFT):
+            # automata this big route to the sparse engine and never get a
+            # prefilter; guard anyway for direct constructions
+            raise ValueError(
+                "prefiltered scan needs state ids < 2**24"
+            )
+        self.am = am
+        self.device = table.device
+        self.m = pf.m
+        self.words = pf.words
+        self.passes = pf.passes
+        self.tables = torch.from_numpy(
+            np.ascontiguousarray(pf.tables, dtype=np.int32)
+        ).to(self.device)
+        # verify table: transition target | has_match(target) << FLAG_SHIFT
+        # — the verification walk reads match flags with the next state.
+        self.vtable = table | (
+            (match_count[table.long()] > 0).to(torch.int32) << FLAG_SHIFT
+        )
+        self.classes = classes
+        self.use_classes = use_classes
+        self.fire_cap = 1 << 14
+        self.match_cap = 1 << 12
+        #: set False after a scan observes a pathological fire rate
+        self.worthwhile = True
+
+    def stage(self, hay: np.ndarray) -> torch.Tensor:
+        """Pad + reshape + transfer a haystack to the device layout.
+
+        On CUDA the copy leaves a pinned host buffer ``non_blocking``, so a
+        caller can stage segment ``k+1`` while segment ``k``'s pipeline is
+        still queued (``occurrences_streamed``).
+        """
+        n = len(hay)
+        rows = -(-max(n, 1) // 128)
+        R = min(BLOCK_ROWS, _bucket(rows, lo=8))
+        rows_p = max(R, _bucket(rows, lo=8))  # power-of-two block count
+        with torch.profiler.record_function("ahocorasick:stage"):
+            buf = np.zeros(rows_p * 128, dtype=np.uint8)
+            buf[:n] = hay
+            return to_device(buf.reshape(rows_p, 128), self.device)
+
+    #: segment length of the double-buffered streamed pipeline
+    SEG_BYTES = 64 << 20
+
+    def occurrences_streamed(
+        self, hay: np.ndarray, seg_bytes: int | None = None
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
+        """Segmented prefiltered scan with double-buffered staging.
+
+        Splits the haystack into ``seg_bytes`` segments, each staged
+        with a ``W``-byte right overlap so every match STARTING inside
+        a segment is verified there; matches starting in the overlap are
+        dropped and re-found by the next segment.  Segment ``k+1``'s
+        host->device copy is issued before segment ``k``'s result fetch
+        blocks.
+        """
+        n = len(hay)
+        seg = seg_bytes or self.SEG_BYTES
+        if n <= seg:
+            return self.occurrences(hay)
+        W = self.am.max_len + COARSE - 1
+        starts = list(range(0, n, seg))
+
+        def window(i: int) -> np.ndarray:
+            s0 = starts[i]
+            return hay[s0 : min(n, s0 + seg + W)]
+
+        out_p: list[np.ndarray] = []
+        out_s: list[np.ndarray] = []
+        out_e: list[np.ndarray] = []
+        cur_win = window(0)
+        cur2d = self.stage(cur_win)
+        for i, s0 in enumerate(starts):
+            nxt_win = nxt2d = None
+            if i + 1 < len(starts):
+                nxt_win = window(i + 1)
+                nxt2d = self.stage(nxt_win)  # async, overlaps compute
+            occ = self.occurrences(cur_win, hay2d=cur2d)
+            if occ is None:
+                return None  # fire rate says the dense tiers win
+            pids, sts, ends = occ
+            if i + 1 < len(starts):
+                keep = sts < seg  # starts in the overlap belong to i+1
+                pids, sts, ends = pids[keep], sts[keep], ends[keep]
+            out_p.append(pids)
+            out_s.append(sts + s0)
+            out_e.append(ends + s0)
+            cur_win, cur2d = nxt_win, nxt2d
+        pids = np.concatenate(out_p)
+        sts = np.concatenate(out_s)
+        ends = np.concatenate(out_e)
+        # boundary-spanning matches kept by segment k can END after
+        # segment k+1's first matches — restore the canonical
+        # (end asc, len desc, pid asc) order the resolvers require
+        order = np.lexsort((pids, sts, ends))
+        return pids[order], sts[order], ends[order]
+
+    def occurrences(
+        self, hay: np.ndarray, hay2d: torch.Tensor | None = None
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
+        """Complete (pids, starts, ends) for the haystack, or None when the
+        observed fire rate says the dense scan should take over."""
+        am = self.am
+        n = len(hay)
+        W = am.max_len + COARSE - 1  # window covers COARSE starts
+        if hay2d is None:
+            hay2d = self.stage(hay)
+        cap, cap2 = self.fire_cap, self.match_cap
+        too_many = max(1 << 16, n // 2)  # groups×W beyond this: dense wins
+        while True:
+            with torch.profiler.record_function("ahocorasick:fire_verify"):
+                outs = _fire_verify(
+                    self.tables,
+                    self.vtable,
+                    self.classes,
+                    hay2d,
+                    n,
+                    cap,
+                    cap2,
+                    self.m,
+                    self.words,
+                    self.passes,
+                    W,
+                    self.use_classes,
+                )
+            # ONE device-to-host copy for every output (waits for the device)
+            with torch.profiler.record_function("ahocorasick:fetch"):
+                flat = torch.cat(
+                    [o.reshape(-1).to(torch.int64) for o in outs]
+                ).cpu().numpy()
+            fire_np, ftotal = flat[:cap], int(flat[cap])
+            win, step, st = flat[cap + 1 : -1].reshape(3, cap2)
+            mtotal = int(flat[-1])
+            if ftotal > cap:
+                if ftotal * max(W, 1) > too_many:
+                    # keep the sticky caps in step with what we observed so
+                    # a retried corpus doesn't re-run the undersized kernel
+                    self.fire_cap = max(self.fire_cap, _bucket(ftotal))
+                    self.worthwhile = False
+                    return None
+                cap = _bucket(ftotal)
+                continue
+            if mtotal > cap2:  # trustworthy only once ftotal <= cap
+                cap2 = _bucket(mtotal)
+                continue
+            break
+        self.fire_cap = max(1 << 14, _bucket(max(ftotal, 1)))
+        self.match_cap = max(1 << 12, _bucket(max(mtotal, 1)))
+        if ftotal * max(W, 1) > too_many:
+            # verification rescans too much — let caller fall back
+            self.worthwhile = False
+            return None
+        win = win[:mtotal]
+        step = step[:mtotal]
+        st = st[:mtotal]
+        with torch.profiler.record_function("ahocorasick:expand"):
+            pids, starts, ends = expand_verified(am, fire_np[win], step, st)
+            order = np.lexsort((pids, starts, ends))
+        return pids[order], starts[order], ends[order]

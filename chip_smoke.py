@@ -1,0 +1,467 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+Run from the repository root, with one CUDA card visible:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``ahocorasick_rs_tpu_torch/csrc`` with
+``nvcc``, holds each kernel against its plain PyTorch version at the main
+path's shapes (exact equality; all values are integers) and times both,
+then calls ``AhoCorasick.find_matches_as_indexes`` on a 64 MiB corpus with
+1,000 name patterns (the reference benchmark's LONG recipe, made from a
+seed), through the Teddy pipeline and through the dense lane scan, and
+checks every answer against the port's own host tier.  It also checks the
+streamed Teddy pipeline and the match-dense bailout.
+
+Output: progress lines, the card's name and power limit as ``nvidia-smi``
+reports them, one ``{"kernels": [...]}`` JSON line, and as the last line
+``{"ok": true, "device": {...}}``.  Details also go to
+``chiprun_out/chip_smoke.json``.  Any failed phase exits non-zero.  Without
+a CUDA card, or without the package beside it, it exits non-zero before
+printing a result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import string
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SEED = 0
+CORPUS_MIB = 64
+PATTERNS = 1000
+#: H100 SXM device-memory rate (NVIDIA data sheet), bytes per second
+HBM_BYTES_PER_S = 3.35e12
+
+
+def synth_names(count: int, rng: np.random.Generator) -> list[bytes]:
+    """Lowercase 'name' patterns of 5-11 bytes (the LONG recipe)."""
+    letters = np.frombuffer(string.ascii_lowercase.encode(), dtype=np.uint8)
+    names = set()
+    while len(names) < count:
+        k = int(rng.integers(5, 12))
+        names.add(bytes(letters[rng.integers(0, 26, k)]))
+    return sorted(names)
+
+
+def synth_corpus(
+    n_bytes: int, names: list[bytes], rng: np.random.Generator
+) -> np.ndarray:
+    """Random lowercase words + spaces with a name spliced into about one
+    in 90 lines of 600 bytes (the LONG recipe)."""
+    letters = np.frombuffer(
+        (string.ascii_lowercase + "      ").encode(), dtype=np.uint8
+    )
+    corpus = letters[rng.integers(0, len(letters), n_bytes)]
+    line_len = 600
+    n_lines = n_bytes // line_len
+    hit_lines = rng.integers(0, n_lines, max(1, n_lines // 90))
+    for ln in hit_lines:
+        name = names[int(rng.integers(0, len(names)))]
+        off = int(ln) * line_len + int(rng.integers(0, line_len - 12))
+        corpus[off : off + len(name)] = np.frombuffer(name, dtype=np.uint8)
+    return corpus
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(got, want) -> int:
+    require(got.shape == want.shape, f"shape {got.shape} != {want.shape}")
+    if got.numel() == 0:
+        return 0
+    return int((got.long() - want.long()).abs().max())
+
+
+def bound_ms(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_kernels(dev, names, corpus) -> dict:
+    """Each kernel against its plain version at the main path's shapes."""
+    from ahocorasick_rs_tpu_torch import _kernels
+    from ahocorasick_rs_tpu_torch.models.automaton import build_automaton
+    from ahocorasick_rs_tpu_torch.models.prefilter import build_prefilter
+    from ahocorasick_rs_tpu_torch.ops import scan_cuda, scan_teddy
+
+    am = build_automaton(names)
+    pf = build_prefilter(names)
+    require(pf is not None, "no prefilter for the name set")
+    n = len(corpus)
+    out = {}
+
+    # K1: fire mask over the staged corpus, DFA tables (the Teddy path)
+    dfa = scan_cuda.DeviceTables(am, "dfa", dev)
+    sc = scan_teddy.TeddyScanner(
+        am, pf, dfa.table, dfa.classes, dfa.match_count, dfa.use_classes
+    )
+    hay2d = sc.stage(corpus)
+    fire_args = (sc.tables, hay2d, sc.m, sc.words, sc.passes)
+    got = _kernels.fire(*fire_args)
+    want = scan_teddy._fire_mask_plain(*fire_args)
+    err = max_abs_err(got, want)
+    require(err == 0, f"K1 fire differs from its plain version ({err})")
+    N = hay2d.numel()
+    out["fire"] = {
+        "shape": f"hay uint8 {list(hay2d.shape)}, tables int32 "
+                 f"{list(sc.tables.shape)}, m={sc.m} words={sc.words} "
+                 f"passes={sc.passes}",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: _kernels.fire(*fire_args), 10),
+        "plain_ms": cuda_ms(
+            lambda: scan_teddy._fire_mask_plain(*fire_args), 2
+        ),
+        "bound_ms": bound_ms(2 * N + sc.tables.numel() * 4),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "fire_rate": float(got.float().mean()),
+    }
+
+    # K3 on the Teddy path's shape: the COARSE group mask
+    mask = got.reshape(-1)
+    G = N // scan_teddy.COARSE
+    fired = (mask.view(G, scan_teddy.COARSE).amax(dim=1) != 0) & (
+        torch.arange(G, device=dev) * scan_teddy.COARSE < n
+    )
+    fired_u8 = fired.view(torch.uint8)
+    cap = sc.fire_cap
+    fg, ftotal = _kernels.compact(fired_u8, cap)
+    fg_p, ftotal_p = scan_cuda._compact_plain(fired_u8, cap)
+    require(int(ftotal) == int(ftotal_p), "K3 total differs (groups)")
+    require(torch.equal(fg, fg_p), "K3 indexes differ (groups)")
+    ftotal = int(ftotal)
+    while ftotal > cap:  # as TeddyScanner.occurrences grows its cap
+        cap = scan_teddy._bucket(ftotal)
+        fg, _ = _kernels.compact(fired_u8, cap)
+    groups_ms = cuda_ms(lambda: _kernels.compact(fired_u8, cap), 20)
+    groups_shape = f"mask uint8 [{G}] ({ftotal} true), cap={cap}"
+
+    # K4: verify walk over the fired windows, W = max_len + COARSE - 1
+    W = am.max_len + scan_teddy.COARSE - 1
+    fire_pos = torch.where(fg >= 0, fg * scan_teddy.COARSE, -1)
+    flat = hay2d.reshape(-1)
+    v_args = (sc.vtable, sc.classes, flat, fire_pos, n, W, sc.use_classes)
+    got = _kernels.verify(*v_args)
+    want = scan_teddy._verify_walk_plain(*v_args)
+    err = max_abs_err(got, want)
+    require(err == 0, f"K4 verify differs from its plain version ({err})")
+    out["verify"] = {
+        "shape": f"fire_pos int32 [{cap}] ({ftotal} windows), W={W}, "
+                 f"vtable int32 {list(sc.vtable.shape)}",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: _kernels.verify(*v_args), 20),
+        "plain_ms": cuda_ms(
+            lambda: scan_teddy._verify_walk_plain(*v_args), 2
+        ),
+        # window bytes + fire positions read, the walk of the real
+        # windows written; tables left out (which rows a walk touches
+        # depends on the data, and they stay in L2)
+        "bound_ms": bound_ms(ftotal * W + 4 * ftotal + 4 * ftotal * W),
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+    # K2: lane scan at the dense path's layout, classed tables (the dense
+    # phase runs ContiguousNFA)
+    cls = scan_cuda.DeviceTables(am, "classed", dev)
+    halo = am.max_len - 1
+    L, T = scan_cuda.choose_layout(n, halo)
+    buf = np.zeros(L * T, dtype=np.uint8)
+    buf[:n] = corpus
+    hay = torch.from_numpy(buf).to(dev)
+    k2_args = (cls.table, cls.classes, hay, cls.match_count, n, L, T, halo,
+               cls.use_classes)
+    st, lm = _kernels.lane_scan(*k2_args)
+    st_p, lm_p = scan_cuda._lane_scan_plain(*k2_args)
+    err = max(max_abs_err(st, st_p), max_abs_err(lm, lm_p))
+    require(err == 0, f"K2 lane scan differs from its plain version ({err})")
+    one_lane = (cls.table, cls.classes, hay[:T].contiguous(),
+                cls.match_count, T, 1, T, halo, cls.use_classes)
+    out["lane_scan"] = {
+        "shape": f"L={L} T={T} halo={halo}, table int32 "
+                 f"{list(cls.table.shape)}",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: _kernels.lane_scan(*k2_args), 5),
+        "plain_ms": cuda_ms(lambda: scan_cuda._lane_scan_plain(*k2_args), 1),
+        # haystack, table and match counts read, int32 states and uint8
+        # mask written
+        "bound_ms": bound_ms(
+            L * T * (1 + 4 + 1) + 4 * (cls.table.numel() + am.num_states)
+        ),
+        "bound_by": "bytes",
+        "library_ms": None,
+        # one lane alone: T + halo dependent table loads in a row, the
+        # latency floor no lane layout can beat
+        "dep_chain_ms": cuda_ms(lambda: _kernels.lane_scan(*one_lane), 20),
+    }
+
+    # K3 on the dense path's shape: the lane scan's match mask
+    cap = cls.last_cap
+    idx, total = _kernels.compact(lm, cap)
+    idx_p, total_p = scan_cuda._compact_plain(lm, cap)
+    require(int(total) == int(total_p), "K3 total differs (lanes)")
+    err = max_abs_err(idx, idx_p)
+    require(err == 0, f"K3 compact differs from its plain version ({err})")
+    out["compact"] = {
+        "shape": f"mask uint8 [{lm.numel()}] ({int(total)} true), cap={cap}",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: _kernels.compact(lm, cap), 20),
+        "plain_ms": cuda_ms(lambda: scan_cuda._compact_plain(lm, cap), 2),
+        "bound_ms": bound_ms(lm.numel() + 4 * cap + 4),
+        "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: torch.nonzero(lm), 20),
+        "groups_shape": groups_shape,
+        "groups_ms": groups_ms,
+    }
+    return out
+
+
+def host_backend() -> str:
+    from ahocorasick_rs_tpu_torch.models import native
+
+    return "native" if native.available() else "numpy"
+
+
+def phase_teddy(port, names_s, text) -> dict:
+    """The main path: auto routing, then the forced device tier, all
+    through the Teddy pipeline; answers checked against the host tier."""
+    from ahocorasick_rs_tpu_torch import _kernels
+
+    kind = port.MatchKind.LeftmostLongest
+    impl = port.Implementation.DFA
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    auto = port.AhoCorasick(names_s, matchkind=kind, implementation=impl)
+    got = auto.find_matches_as_indexes(text)
+    torch.cuda.synchronize()
+    auto_s = time.perf_counter() - t0
+    require(
+        auto.stats()["last_backend"] == "teddy",
+        f"auto call ran {auto.stats()['last_backend']!r}, not teddy",
+    )
+    ac = port.AhoCorasick(
+        names_s, matchkind=kind, implementation=impl, backend="device"
+    )
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = ac.find_matches_as_indexes(text)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        require(again == got, "device call differs from the auto call")
+        require(ac.stats()["last_backend"] == "teddy", "device call not teddy")
+    launches = dict(_kernels.LAUNCHES)
+    for k in ("fire", "compact", "verify"):
+        require(launches[k] > 0, f"Teddy path launched no {k} kernel")
+    host = host_backend()
+    want = port.AhoCorasick(
+        names_s, matchkind=kind, implementation=impl, backend=host
+    ).find_matches_as_indexes(text)
+    require(got == want, f"Teddy tuples differ from the {host} tier")
+    require(len(got) > 100, f"only {len(got)} matches")
+    return {
+        "launches": launches, "matches": len(got), "host_tier": host,
+        "auto_call_s": auto_s, "device_call_s": times, "scanner": ac._teddy,
+    }
+
+
+def phase_streamed(scanner, corpus) -> dict:
+    whole = scanner.occurrences(corpus)
+    streamed = scanner.occurrences_streamed(corpus, seg_bytes=16 << 20)
+    require(whole is not None and streamed is not None, "Teddy declined")
+    for a, b in zip(whole, streamed):
+        require(np.array_equal(a, b), "streamed Teddy differs from one pass")
+    return {"occurrences": len(whole[0])}
+
+
+def phase_dense(port, names_s, text) -> dict:
+    """The dense lane-scan path: ContiguousNFA, Standard, overlapping."""
+    from ahocorasick_rs_tpu_torch import _kernels
+
+    impl = port.Implementation.ContiguousNFA
+    _kernels.reset_launches()
+    ac = port.AhoCorasick(names_s, implementation=impl, backend="device")
+    ac._teddy_state = "off"
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = ac.find_matches_as_indexes(text, overlapping=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        require(ac.stats()["last_backend"] == "device", "dense call not device")
+    launches = dict(_kernels.LAUNCHES)
+    for k in ("lane_scan", "compact"):
+        require(launches[k] > 0, f"dense path launched no {k} kernel")
+    host = host_backend()
+    want = port.AhoCorasick(
+        names_s, implementation=impl, backend=host
+    ).find_matches_as_indexes(text, overlapping=True)
+    require(got == want, f"dense tuples differ from the {host} tier")
+    return {"launches": launches, "matches": len(got), "device_call_s": times}
+
+
+def phase_bailout(port) -> dict:
+    """Nested patterns over 16 MiB of 'a': the device scan bails out with
+    MatchDenseError and the call re-routes to the host resolvers."""
+    from ahocorasick_rs_tpu_torch import _kernels
+    from ahocorasick_rs_tpu_torch.ops import scan_cuda
+    from ahocorasick_rs_tpu_torch.ops.resolve import MatchDenseError
+
+    pats = ["a" * k for k in range(1, 65)]
+    text = "a" * (16 << 20)
+    kind = port.MatchKind.LeftmostLongest
+    ac = port.AhoCorasick(pats, matchkind=kind, backend="device")
+    _kernels.reset_launches()
+    got = ac.find_matches_as_indexes(text)
+    tier = ac.stats()["last_backend"]
+    require(tier in ("native_resolve", "numpy"), f"bailout ran {tier!r}")
+    require(_kernels.LAUNCHES["lane_scan"] > 0, "bailout never scanned")
+    try:
+        scan_cuda.scan_device(
+            ac._automaton, np.frombuffer(text.encode(), np.uint8),
+            ac._get_device_tables(),
+        )
+        raise SmokeFailure("scan_device did not raise MatchDenseError")
+    except MatchDenseError:
+        pass
+    want = port.AhoCorasick(
+        pats, matchkind=kind, backend=host_backend()
+    ).find_matches_as_indexes(text)
+    require(got == want, "bailout tuples differ from the host tier")
+    return {"rerouted_to": tier, "matches": len(got)}
+
+
+KERNELS = {
+    "fire": ("K1 fire", "ahocorasick_rs_tpu_torch/csrc/teddy.cu",
+             "ahocorasick_rs_tpu/ops/scan_teddy.py:187"),
+    "lane_scan": ("K2 lane_scan", "ahocorasick_rs_tpu_torch/csrc/scan.cu",
+                  "ahocorasick_rs_tpu/ops/scan_jax.py:72"),
+    "compact": ("K3 compact", "ahocorasick_rs_tpu_torch/csrc/scan.cu",
+                "ahocorasick_rs_tpu/ops/scan_jax.py:94"),
+    "verify": ("K4 verify", "ahocorasick_rs_tpu_torch/csrc/teddy.cu",
+               "ahocorasick_rs_tpu/ops/scan_teddy.py:245"),
+}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        import ahocorasick_rs_tpu_torch as port
+        from ahocorasick_rs_tpu_torch import _kernels
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
+        return 3
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    log(smi)
+    name = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+
+    _kernels.build()
+    log(f"build: {_kernels.BUILD_SECONDS:.2f} s")
+    for src, text in _kernels.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "Used" in line or "error" in line:
+                log(f"  {src}: {line.strip()}")
+
+    rng = np.random.default_rng(SEED)
+    names = synth_names(PATTERNS, rng)
+    corpus = synth_corpus(CORPUS_MIB << 20, names, rng)
+    text = corpus.tobytes().decode()
+    names_s = [x.decode() for x in names]
+
+    report: dict = {"gpu": smi, "device_name": name}
+    t = time.perf_counter()
+    report["kernels"] = phase_kernels(dev, names, corpus)
+    log(f"kernels: equal to their plain versions "
+        f"({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    teddy = phase_teddy(port, names_s, text)
+    scanner = teddy.pop("scanner")
+    report["teddy_path"] = teddy
+    log(f"teddy path: {teddy['matches']} matches, device calls "
+        f"{[round(x * 1e3, 1) for x in teddy['device_call_s']]} ms, "
+        f"launches {teddy['launches']} ({time.perf_counter() - t:.1f} s)")
+    report["streamed"] = phase_streamed(scanner, corpus)
+    log(f"streamed teddy: equal ({report['streamed']['occurrences']} "
+        "occurrences)")
+    t = time.perf_counter()
+    dense = phase_dense(port, names_s, text)
+    report["dense_path"] = dense
+    log(f"dense path: {dense['matches']} matches, device calls "
+        f"{[round(x * 1e3, 1) for x in dense['device_call_s']]} ms, "
+        f"launches {dense['launches']} ({time.perf_counter() - t:.1f} s)")
+    report["bailout"] = phase_bailout(port)
+    log(f"bailout: re-routed to {report['bailout']['rerouted_to']}")
+
+    rows = []
+    for key, (kname, source, replaces) in KERNELS.items():
+        k = report["kernels"][key]
+        by_path = {
+            "teddy": teddy["launches"][key], "dense": dense["launches"][key],
+        }
+        rows.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"], "equal": k["max_abs_err"] == 0,
+            "shape": k["shape"],
+        })
+        if "dep_chain_ms" in k:
+            rows[-1]["dep_chain_ms"] = k["dep_chain_ms"]
+    report["seconds"] = time.perf_counter() - t_start
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,64 @@
+"""The PyTorch port stands alone: no module of ``ahocorasick_rs_tpu_torch``
+and neither ``chip_smoke.py`` nor ``profile_main_path.py`` imports ``jax`` or the JAX package
+(``ahocorasick_rs_tpu``), not even a module of it that does not use JAX.
+Checked on the source text with ``ast``, so a lazy import inside a
+function counts too.  The test itself imports both packages, as every
+port test file does, to show they load side by side.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+
+import pytest
+
+import ahocorasick_rs_tpu
+import ahocorasick_rs_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPTS = ("chip_smoke.py", "profile_main_path.py")
+FORBIDDEN = {"jax", "jaxlib", "ahocorasick_rs_tpu"}
+
+
+def _sources() -> list[str]:
+    pkg = os.path.dirname(ahocorasick_rs_tpu_torch.__file__)
+    out = [os.path.join(ROOT, s) for s in SCRIPTS]
+    for d, _, files in os.walk(pkg):
+        out += [os.path.join(d, f) for f in files if f.endswith((".py", ".pyi"))]
+    return sorted(out)
+
+
+def _imported_tops(path: str) -> set[str]:
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    tops = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            tops.add((node.module or "").split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(
+            node.func, "id", getattr(node.func, "attr", "")
+        ) in ("import_module", "__import__"):
+            for arg in node.args[:1]:
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                    tops.add(arg.value.split(".")[0])
+    return tops
+
+
+def test_sources_found() -> None:
+    paths = _sources()
+    for script in SCRIPTS:
+        assert os.path.join(ROOT, script) in paths
+        assert os.path.exists(os.path.join(ROOT, script)), f"{script} is missing"
+    assert len(paths) >= 15
+    assert ahocorasick_rs_tpu.__name__ != ahocorasick_rs_tpu_torch.__name__
+
+
+@pytest.mark.parametrize(
+    "path", _sources(), ids=lambda p: os.path.relpath(p, ROOT)
+)
+def test_no_jax_import(path: str) -> None:
+    bad = _imported_tops(path) & FORBIDDEN
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {sorted(bad)}"
