@@ -30,7 +30,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
-SOURCES = ("scan.cu", "teddy.cu")
+SOURCES = ("scan.cu", "teddy.cu", "stride2.cu", "sparse.cu", "batch.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {
     "fire": 0, "lane_scan": 0, "compact": 0, "verify": 0,
+    "batch_scan": 0, "stride2_scan": 0, "sparse_scan": 0,
 }
 #: compiler output per source (ptxas register and shared-memory report)
 BUILD_LOG: dict[str, str] = {}
@@ -58,6 +59,11 @@ _SIGNATURES = {
     "ac_compact_chunk": [],
     "ac_fire": [_P, _I32, _P, _I64, _I32, _I32, _I32, _P, _P],
     "ac_verify": [_P, _I32, _P, _I32, _P, _I64, _P, _I32, _I32, _P, _P],
+    "ac_stride2_scan": [_P, _I32, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P,
+                        _P],
+    "ac_sparse_scan": [_P, _I64, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P,
+                       _P, _P],
+    "ac_batch_scan": [_P, _I32, _P, _I32, _P, _P, _P, _I32, _I32, _P, _P, _P],
 }
 
 
@@ -250,3 +256,94 @@ def verify(
     ), "verify")
     LAUNCHES["verify"] += 1
     return out
+
+
+def stride2_scan(
+    packed2: torch.Tensor, C: int, classes: torch.Tensor, hay: torch.Tensor,
+    n: int, L: int, T: int, halo: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6: pair end states int32 [L*T/2], after-halo states int32 [L] and
+    match mask uint8 [L*T]."""
+    dev = hay.device
+    if dev.type != "cuda":
+        raise ValueError("stride2_scan kernel needs CUDA tensors")
+    _check("packed2", packed2, torch.int32, dev, 2)
+    _check("classes", classes, torch.int32, dev, 1)
+    _check("hay", hay, torch.uint8, dev, 1)
+    if packed2.shape[1] != C * C or classes.numel() != 257:
+        raise ValueError("stride2_scan: packed2 is not [S, C*C] or bad classes")
+    if hay.numel() != L * T or halo > T or T % 2 or halo % 2:
+        raise ValueError("stride2_scan: bad layout, or T or halo is odd")
+    if not 0 <= n <= L * T:
+        raise ValueError(f"stride2_scan: n={n} outside [0, {L * T}]")
+    ends = torch.empty(L * T // 2, dtype=torch.int32, device=dev)
+    after_halo = torch.empty(L, dtype=torch.int32, device=dev)
+    mask = torch.empty(L * T, dtype=torch.uint8, device=dev)
+    lib = build()["stride2"]
+    _raise_on(lib.ac_stride2_scan(
+        packed2.data_ptr(), C, classes.data_ptr(), hay.data_ptr(), n, L, T,
+        halo, ends.data_ptr(), after_halo.data_ptr(), mask.data_ptr(),
+        _stream(dev),
+    ), "stride2_scan")
+    LAUNCHES["stride2_scan"] += 1
+    return ends, after_halo, mask
+
+
+def sparse_scan(
+    keys: torch.Tensor, targets: torch.Tensor, fail: torch.Tensor,
+    match_count: torch.Tensor, hay: torch.Tensor, n: int, L: int, T: int,
+    halo: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7: states int32 [L*T] and match mask uint8 [L*T]."""
+    dev = hay.device
+    if dev.type != "cuda":
+        raise ValueError("sparse_scan kernel needs CUDA tensors")
+    _check("keys", keys, torch.int64, dev, 1)
+    _check("targets", targets, torch.int32, dev, 1)
+    _check("fail", fail, torch.int32, dev, 1)
+    _check("match_count", match_count, torch.int32, dev, 1)
+    _check("hay", hay, torch.uint8, dev, 1)
+    if targets.numel() != keys.numel() or fail.numel() != match_count.numel():
+        raise ValueError("sparse_scan: keys/targets or fail/match_count differ")
+    if hay.numel() != L * T or halo > T or not 0 <= n <= L * T:
+        raise ValueError("sparse_scan: bad layout, halo or n")
+    states = torch.empty(L * T, dtype=torch.int32, device=dev)
+    mask = torch.empty(L * T, dtype=torch.uint8, device=dev)
+    lib = build()["sparse"]
+    _raise_on(lib.ac_sparse_scan(
+        keys.data_ptr(), keys.numel(), targets.data_ptr(), fail.data_ptr(),
+        match_count.data_ptr(), hay.data_ptr(), n, L, T, halo,
+        states.data_ptr(), mask.data_ptr(), _stream(dev),
+    ), "sparse_scan")
+    LAUNCHES["sparse_scan"] += 1
+    return states, mask
+
+
+def batch_scan(
+    table: torch.Tensor, classes: torch.Tensor, hay2d: torch.Tensor,
+    lens: torch.Tensor, match_count: torch.Tensor, use_classes: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5: states int32 [B*T] and match mask uint8 [B*T] of a uint8
+    [B, T] document buffer whose row b holds lens[b] real bytes."""
+    dev = hay2d.device
+    if dev.type != "cuda":
+        raise ValueError("batch_scan kernel needs CUDA tensors")
+    _check("table", table, torch.int32, dev, 2)
+    _check("classes", classes, torch.int32, dev, 1)
+    _check("hay2d", hay2d, torch.uint8, dev, 2)
+    _check("lens", lens, torch.int32, dev, 1)
+    _check("match_count", match_count, torch.int32, dev, 1)
+    B, T = hay2d.shape
+    if classes.numel() != 257 or lens.numel() != B or B * T >= 1 << 31:
+        raise ValueError("batch_scan: bad classes, lens or layout")
+    states = torch.empty(B * T, dtype=torch.int32, device=dev)
+    mask = torch.empty(B * T, dtype=torch.uint8, device=dev)
+    lib = build()["batch"]
+    _raise_on(lib.ac_batch_scan(
+        table.data_ptr(), table.shape[1], classes.data_ptr(),
+        int(use_classes), hay2d.data_ptr(), lens.data_ptr(),
+        match_count.data_ptr(), B, T, states.data_ptr(), mask.data_ptr(),
+        _stream(dev),
+    ), "batch_scan")
+    LAUNCHES["batch_scan"] += 1
+    return states, mask

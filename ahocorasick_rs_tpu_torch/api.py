@@ -18,6 +18,11 @@ Execution tiers (picked per call by haystack size, overridable with
                 prefiltered Teddy pipeline (``ops/scan_teddy.py``) when it
                 pays; streams arbitrarily large haystacks.
 
+The ``*_batch`` methods scan many documents in one device dispatch
+(``device_batch`` through ``scan_cuda.scan_device_batch``, or
+``teddy_batch`` through the Teddy pipeline over one staged buffer), or in
+one native call below the device tier (``native_batch``).
+
 All tiers produce the identical complete occurrence set; match-kind
 semantics are resolved from it by ``ops.resolve`` (one shared semantics
 engine instead of the reference's per-kind automata).
@@ -57,6 +62,63 @@ DEVICE_TIER_MIN = 1 << 21
 #: total pattern chars at or below which patterns are stored by default
 #: (reference heuristic, upstream src/lib.rs:164-184).
 STORE_PATTERNS_THRESHOLD = 4096
+
+#: per-dispatch staged-byte budget for the device batch path.  The batch
+#: kernels stage a zero-padded ``[B, T]`` buffer with ``T`` = longest
+#: document (aligned); a length-skewed batch is split into groups so the
+#: padding can never blow the staged buffer past this budget — and, a
+#: fortiori, past the int32 position arithmetic of the compaction kernel.
+BATCH_STAGE_BYTES = 128 << 20
+#: grouping pads a document to at most this factor of its own length
+#: (plus alignment) — bounds per-document staging waste under skew.
+_BATCH_WASTE = 4
+#: the waste rule only engages once a group stages at least this much:
+#: below it, splitting to save padding costs more (an extra dispatch) than
+#: the padding it saves.
+_WASTE_MIN_BYTES = 1 << 20
+
+
+def _plan_batch_groups(lens: list[int]) -> list[list[int]]:
+    """Partition batch indexes into device-dispatch groups.
+
+    Groups are built in descending length order, so each group's ``T`` is
+    its first member's length: a group closes when adding a document would
+    either exceed :data:`BATCH_STAGE_BYTES` of staged bytes, or — once the
+    group already stages :data:`_WASTE_MIN_BYTES` — waste more than
+    :data:`_BATCH_WASTE` x the document's own *achievable* staging (the
+    power-of-two T it would get among its peers; a 3-byte document can
+    never stage tighter than the 16-byte floor, so tiny documents group
+    together instead of fragmenting, and sub-MB groups never split at
+    all).  Both the row count and T are budget-accounted power-of-two
+    aligned, matching what ``scan_device_batch`` actually stages.  A
+    uniform batch that fits the budget comes back as one group; singleton
+    groups are the caller's signal to use the streaming single-document
+    path.
+    """
+    order = sorted(range(len(lens)), key=lambda i: -lens[i])
+    groups: list[list[int]] = []
+    cur: list[int] = []
+    curT = 16
+    for i in order:
+        ln = max(lens[i], 1)
+        # the tightest (pow2, >=16) T this document could stage at
+        tmin = 1 << (max(ln, 16) - 1).bit_length()
+        # pow2 ceiling of the row count after adding this doc, floored
+        # at scan_device_batch's MIN_LANES=8 row padding
+        rows = 1 << max(len(cur), 7).bit_length()
+        staged = (len(cur) + 1) * curT
+        if cur and (
+            (tmin * _BATCH_WASTE < curT and staged >= _WASTE_MIN_BYTES)
+            or rows * curT > BATCH_STAGE_BYTES
+        ):
+            groups.append(cur)
+            cur = []
+        if not cur:
+            curT = tmin
+        cur.append(i)
+    if cur:
+        groups.append(cur)
+    return groups
 
 
 def _overlapping_error(kind: MatchKind) -> str:
@@ -170,7 +232,9 @@ class _MatcherBase:
         return True
 
     #: execution tiers grouped for the measured-throughput router
-    _HOST_TIERS = frozenset(("python", "numpy", "native", "native_resolve"))
+    _HOST_TIERS = frozenset(
+        ("python", "numpy", "native", "native_batch", "native_resolve")
+    )
 
     def _note_scan(self, nbytes: int, seconds: float) -> None:
         """Accumulate scan-throughput counters."""
@@ -434,6 +498,230 @@ class _MatcherBase:
                 self._automaton, engine, self._device
             )
         return self._device_tables
+
+    # -- batched many-small-haystack path ------------------------------
+    def _batch_occurrences(
+        self, docs: list[np.ndarray]
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Flat multi-document occurrence set from one device dispatch.
+
+        The documents share a zero-padded ``[B, T]`` layout (one row per
+        document).  ``T`` is tight (COARSE-aligned) on the prefiltered
+        path and a power of two on the dense path.  Rows never share a
+        COARSE group since ``T % COARSE == 0``, and matches are filtered
+        to their owning document's byte range, so cross-document false
+        matches (spanning padding into the next row) are impossible.
+        Returns ``(pids, starts, ends, offsets)`` in the flat coordinate
+        space ``resolve_batch`` consumes (document ``i`` at
+        ``[i*T, i*T+len)``).
+        """
+        from .ops import scan_cuda
+        from .ops.scan_teddy import COARSE
+
+        am = self._automaton
+        B = len(docs)
+        longest = max((len(d) for d in docs), default=1)
+        total = sum(len(d) for d in docs)
+        occ = None
+        T = 0
+        # The fire kernel only needs COARSE alignment, so a tight T keeps
+        # the staged buffer — and the host-to-device copy — near sum(len)
+        # instead of a power-of-two blowup.  The size gate is on the
+        # STAGED bytes B*T, not sum(len): under length skew the padded
+        # buffer is what the kernels and the int32 positions see.
+        T_teddy = -(-max(longest, 1) // COARSE) * COARSE
+        if (
+            B * T_teddy <= self._TEDDY_MAX_BYTES
+            and self._teddy_wanted(total, max(docs, key=len, default=None))
+            and self._get_teddy() is not None
+        ):
+            T = T_teddy
+            buf = np.zeros(B * T, dtype=np.uint8)
+            lens = np.zeros(max(B, 1), dtype=np.int64)
+            for i, d in enumerate(docs):
+                buf[i * T : i * T + len(d)] = d
+                lens[i] = len(d)
+            # the staged flat buffer IS a haystack: padding can only
+            # over-fire, never match (matches are filtered below)
+            occ = self._teddy.occurrences_streamed(buf)
+            if occ is None:
+                self._teddy_state = "off"
+        if occ is not None:
+            self._last_backend = "teddy_batch"
+            pids, starts, ends = occ
+            lane = starts // T
+            keep = (lane < B) & (ends <= lane * T + lens[lane])
+            pids, starts, ends = pids[keep], starts[keep], ends[keep]
+        else:
+            # dense batch path (K5): T is a power of two there
+            pos, st, T = scan_cuda.scan_device_batch(
+                am, docs, self._get_device_tables()
+            )
+            self._last_backend = "device_batch"
+            self._check_batch_density(st)
+            pids, starts, ends = _resolve.expand_occurrences(am, pos, st)
+        offsets = np.arange(B + 1, dtype=np.int64) * T
+        return pids, starts, ends, offsets
+
+    def _check_batch_density(self, st: np.ndarray) -> None:
+        """Raise :class:`MatchDenseError` before a batch occurrence
+        expansion that would dwarf the scan (same guard as the
+        single-document path's ``occ_total`` check; ``_find_batch``
+        re-routes each document through the guarded single-doc path)."""
+        occ_total = int(
+            self._automaton.match_count[st.astype(np.int64)]
+            .astype(np.int64)
+            .sum()
+        )
+        if occ_total > 4 * self._STREAM_OCC:
+            raise _resolve.MatchDenseError(
+                f"{occ_total} occurrences in a batch expansion"
+            )
+
+    def _native_batch_occurrences(
+        self, docs: list[np.ndarray]
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Flat occurrence set from ONE native foreign call over the
+        concatenated documents."""
+        from .models import native as _native
+
+        am = self._automaton
+        offsets = np.zeros(len(docs) + 1, dtype=np.int64)
+        np.cumsum([len(d) for d in docs], out=offsets[1:])
+        buf = np.concatenate(docs) if docs else np.zeros(0, np.uint8)
+        if self._implementation is not Implementation.DFA and (
+            self._implementation is Implementation.ContiguousNFA
+            or am._delta_classed is not None
+        ):
+            pos, st = _native.scan_dense_native_batch(
+                am.delta_classed, am.match_count, buf, offsets,
+                classes=am.byte_classes,
+            )
+        else:
+            pos, st = _native.scan_dense_native_batch(
+                am.delta, am.match_count, buf, offsets
+            )
+        self._last_backend = "native_batch"
+        self._check_batch_density(st)
+        pids, starts, ends = _resolve.expand_occurrences(am, pos, st)
+        return pids, starts, ends, offsets
+
+    def _find_batch(
+        self, docs: list[np.ndarray], overlapping: bool
+    ) -> list[list[tuple[int, int, int]]]:
+        if overlapping and self._matchkind is not MatchKind.Standard:
+            raise ValueError(_overlapping_error(self._matchkind))
+        backend = self._backend
+        total = sum(len(d) for d in docs)
+        if backend == "auto" and total >= DEVICE_TIER_MIN:
+            self._probe_ctr += 1  # one router tick per batch
+        if backend == "auto":
+            use_device = (
+                total >= DEVICE_TIER_MIN
+                and len(docs) > 1
+                and self._auto_device_ok(
+                    total, max(docs, key=len, default=None)
+                )
+            )
+        else:
+            use_device = backend == "device"
+        use_device = use_device and (
+            self._implementation is not Implementation.NoncontiguousNFA
+        )
+        use_native = (
+            not use_device
+            and backend in ("auto", "native")
+            and len(docs) > 1
+            and self._native_ok()
+        )
+        if not (use_device or use_native):
+            return [self._find(d, overlapping) for d in docs]
+        t0 = time.perf_counter()
+        try:
+            return self._find_batch_grouped(
+                docs, overlapping, use_device, t0, total
+            )
+        except _resolve.MatchDenseError:
+            # batch-level density bailout (device compaction overflow or
+            # a would-be-huge occurrence expansion): each document
+            # re-routes through the guarded single-document path, which
+            # owns the match-dense regime (fused/streamed resolvers)
+            return [self._find(d, overlapping) for d in docs]
+
+    def _find_batch_grouped(
+        self,
+        docs: list[np.ndarray],
+        overlapping: bool,
+        use_device: bool,
+        t0: float,
+        total: int,
+    ) -> list[list[tuple[int, int, int]]]:
+        kind = self._matchkind.value
+        if use_device:
+            groups = _plan_batch_groups([len(d) for d in docs])
+            if len(groups) > 1 or (groups and len(groups[0]) == 1):
+                # also taken for a single singleton group: ONE document
+                # must stream (the batch kernel would stage MIN_LANES x
+                # pow2(T) — for a 300MB doc that is a 4GB buffer and an
+                # int32 overflow in compaction).  Length-skewed batch:
+                # per-group dispatches keep the staged [B, T] buffer
+                # within BATCH_STAGE_BYTES; per-document results scatter
+                # back to the caller's order.
+                out_sk: list[list[tuple[int, int, int]]] = [
+                    [] for _ in docs
+                ]
+                counted = total
+                excluded = 0.0
+                batch_tier = None
+                for idxs in groups:
+                    if len(idxs) == 1:
+                        # a lone document streams through the single-doc
+                        # path, which counts its own bytes and seconds;
+                        # both are left out of this batch's record
+                        counted -= len(docs[idxs[0]])
+                        t_f = time.perf_counter()
+                        out_sk[idxs[0]] = self._find(
+                            docs[idxs[0]], overlapping
+                        )
+                        excluded += time.perf_counter() - t_f
+                        continue
+                    sub = [docs[i] for i in idxs]
+                    with torch.profiler.record_function(
+                        "ahocorasick:scan_batch"
+                    ):
+                        pids, starts, ends, offsets = (
+                            self._batch_occurrences(sub)
+                        )
+                    with torch.profiler.record_function("ahocorasick:resolve"):
+                        res = _resolve.resolve_batch(
+                            pids, starts, ends, offsets,
+                            kind=kind, overlapping=overlapping,
+                        )
+                    for i, r in zip(idxs, res):
+                        out_sk[i] = r
+                    batch_tier = self._last_backend
+                if batch_tier is not None:
+                    # a trailing streamed singleton must not classify the
+                    # batched bytes under its (host) tier in the router EMA
+                    self._last_backend = batch_tier
+                self._note_scan(
+                    counted, time.perf_counter() - t0 - excluded
+                )
+                return out_sk
+        with torch.profiler.record_function("ahocorasick:scan_batch"):
+            if use_device:
+                pids, starts, ends, offsets = self._batch_occurrences(docs)
+            else:
+                pids, starts, ends, offsets = (
+                    self._native_batch_occurrences(docs)
+                )
+        with torch.profiler.record_function("ahocorasick:resolve"):
+            out = _resolve.resolve_batch(
+                pids, starts, ends, offsets,
+                kind=kind, overlapping=overlapping,
+            )
+        self._note_scan(total, time.perf_counter() - t0)
+        return out
 
     #: host-tier scans at or past this size stream segment-by-segment
     #: (bounded peak memory even on match-dense adversarial corpora)
@@ -785,6 +1073,41 @@ class AhoCorasick(_MatcherBase):
         cp = byte_to_codepoint_prefix(hay)
         return [(p, int(cp[s]), int(cp[e])) for (p, s, e) in matches]
 
+    def find_matches_as_indexes_batch(
+        self, haystacks: Iterable[str], overlapping: bool = False
+    ) -> list[list[tuple[int, int, int]]]:
+        """Batched :meth:`find_matches_as_indexes` over many haystacks.
+
+        Device extra (no upstream counterpart): scans every haystack in
+        one device dispatch — the layout of the upstream benchmark's own
+        workload, 10k-100k documents of ~70-600 chars.  Output is exactly
+        ``[find_matches_as_indexes(h, overlapping) for h in haystacks]``.
+        """
+        datas = []
+        ascii_doc = []
+        for h in haystacks:
+            if not isinstance(h, str):
+                raise TypeError(
+                    f"argument 'haystack': '{type(h).__name__}' object "
+                    "cannot be converted to 'PyString'"
+                )
+            d = h.encode("utf-8")
+            datas.append(d)
+            # byte length == str length iff pure ASCII — no second decode
+            # of matched documents later
+            ascii_doc.append(len(d) == len(h))
+        hays = [np.frombuffer(d, dtype=np.uint8) for d in datas]
+        batches = self._find_batch(hays, overlapping)
+        out = []
+        for is_ascii, hay, matches in zip(ascii_doc, hays, batches):
+            if matches and not is_ascii:
+                cp = byte_to_codepoint_prefix(hay)
+                matches = [
+                    (p, int(cp[s]), int(cp[e])) for (p, s, e) in matches
+                ]
+            out.append(matches)
+        return out
+
     def find_matches_as_strings(
         self, haystack: str, overlapping: bool = False
     ) -> list[str]:
@@ -805,6 +1128,30 @@ class AhoCorasick(_MatcherBase):
         if self._patterns is not None:
             return [self._patterns[p] for (p, _, _) in matches]
         return [data[s:e].decode("utf-8") for (_, s, e) in matches]
+
+    def find_matches_as_strings_batch(
+        self, haystacks: Iterable[str], overlapping: bool = False
+    ) -> list[list[str]]:
+        """Batched :meth:`find_matches_as_strings` (device extra)."""
+        datas = []
+        for h in haystacks:
+            if not isinstance(h, str):
+                raise TypeError(
+                    f"argument 'haystack': '{type(h).__name__}' object "
+                    "cannot be converted to 'PyString'"
+                )
+            datas.append(h.encode("utf-8"))
+        hays = [np.frombuffer(d, dtype=np.uint8) for d in datas]
+        batches = self._find_batch(hays, overlapping)
+        if self._patterns is not None:
+            return [
+                [self._patterns[p] for (p, _, _) in matches]
+                for matches in batches
+            ]
+        return [
+            [d[s:e].decode("utf-8") for (_, s, e) in matches]
+            for d, matches in zip(datas, batches)
+        ]
 
 
 class BytesAhoCorasick(_MatcherBase):
@@ -838,3 +1185,14 @@ class BytesAhoCorasick(_MatcherBase):
         """All matches as ``(pattern_index, start, end)`` byte tuples."""
         hay = as_byte_view(haystack)
         return self._find(hay, overlapping)
+
+    def find_matches_as_indexes_batch(
+        self, haystacks: "Iterable[Buffer]", overlapping: bool = False
+    ) -> list[list[tuple[int, int, int]]]:
+        """Batched :meth:`find_matches_as_indexes` (device extra).
+
+        One device dispatch for many bytes-like haystacks; output equals
+        the per-haystack loop exactly.
+        """
+        hays = [as_byte_view(h) for h in haystacks]
+        return self._find_batch(hays, overlapping)

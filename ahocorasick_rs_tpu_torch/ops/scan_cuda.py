@@ -1,17 +1,24 @@
-"""Device scan tier: the halo'd dense lane scan in PyTorch and CUDA.
+"""Device scan tier: the halo'd lane scans in PyTorch and CUDA.
 
 Single-device formulation of the halo'd lane scan (see ``scan_host.py`` for
 the exactness argument).  The haystack crosses to the device as raw
-``uint8``; then two hand-written kernels run:
+``uint8``; then hand-written kernels run:
 
-1. **Lane scan** (K2, ``csrc/scan.cu``): the haystack is cut into ``L``
-   lanes of ``T`` bytes.  Every lane starts at the root, walks the ``halo``
-   bytes before its own segment, then its ``T`` bytes, one table load per
-   byte.  Bytes before the start and at or past ``n`` read as
-   ``PAD_BYTE``.  It writes the state stream and the match mask.
+1. **Lane scan**: the haystack is cut into ``L`` lanes of ``T`` bytes.
+   Every lane starts at the root, walks the ``halo`` bytes before its own
+   segment, then its ``T`` bytes.  Bytes before the start and at or past
+   ``n`` read as ``PAD_BYTE``.  It writes the state stream and the match
+   mask.  One of three kernels, by engine and table size
+   (:func:`scan_device`): the stride-2 pair scan (K6, ``csrc/stride2.cu``)
+   whenever the packed pair table fits, else the one-byte dense scan (K2,
+   ``csrc/scan.cu``); the sparse engine runs the CSR binary-search scan
+   (K7, ``csrc/sparse.cu``).
 2. **Compaction** (K3): matched positions are compacted on the device into
    a fixed-capacity buffer plus an exact count; the caller retries with a
    larger capacity on overflow.  Only O(matches) bytes return to the host.
+
+Many small documents scan in one dispatch through :func:`scan_device_batch`
+(K5, ``csrc/batch.cu``): one document per row, no halo.
 
 Each kernel has a plain PyTorch version of the same function beside its
 wrapper.  The wrapper takes it for CPU tensors (the tests); for CUDA
@@ -19,6 +26,8 @@ tensors it launches the kernel.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -167,9 +176,19 @@ def _scan_compact(
     use_classes: bool,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """uint8 haystack [L*T] → compacted (positions[cap], states[cap], total)."""
-    states, mask = scan_lanes(
-        table, classes, hay, match_count, n, L, T, halo, use_classes
+    return _compact_states(
+        *scan_lanes(
+            table, classes, hay, match_count, n, L, T, halo, use_classes
+        ),
+        cap,
     )
+
+
+def _compact_states(
+    states: torch.Tensor, mask: torch.Tensor, cap: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 over a scan's match mask, and the scan's states at the
+    compacted positions (-1 past the matches)."""
     positions, total = compact_sparse(mask, cap)
     states_at = torch.where(
         positions >= 0, states[positions.clamp(min=0).long()], -1
@@ -177,42 +196,350 @@ def _scan_compact(
     return positions, states_at, total
 
 
+def _batch_scan_plain(
+    table: torch.Tensor, classes: torch.Tensor, hay2d: torch.Tensor,
+    lens: torch.Tensor, match_count: torch.Tensor, use_classes: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5: one vectorised step per column."""
+    B, T = hay2d.shape
+    col = torch.arange(T, device=hay2d.device)[None, :]
+    valid = col < lens.long()[:, None]
+    ext = torch.where(valid, hay2d.long(), PAD_BYTE)
+    if use_classes:
+        ext = classes.long()[ext]
+    ncols = table.shape[1]
+    flat_table = table.reshape(-1)
+    s = torch.zeros(B, dtype=torch.long, device=hay2d.device)
+    out = torch.empty((B, T), dtype=torch.int32, device=hay2d.device)
+    for t in range(T):
+        s = flat_table[s * ncols + ext[:, t]].long()
+        out[:, t] = s
+    states = out.reshape(-1)
+    mask = (match_count[states.long()] > 0) & valid.reshape(-1)
+    return states, mask.to(torch.uint8)
+
+
+def scan_batch(
+    table: torch.Tensor, classes: torch.Tensor, hay2d: torch.Tensor,
+    lens: torch.Tensor, match_count: torch.Tensor, use_classes: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5: (states int32 [B*T], match mask uint8 [B*T]) for a uint8
+    ``[B, T]`` buffer whose row ``b`` holds ``lens[b]`` real bytes."""
+    if hay2d.device.type == "cpu":
+        return _batch_scan_plain(
+            table, classes, hay2d, lens, match_count, use_classes
+        )
+    return _kernels.batch_scan(
+        table, classes, hay2d, lens, match_count, use_classes
+    )
+
+
+def _scan_batch_compact(
+    table: torch.Tensor,
+    classes: torch.Tensor,
+    hay2d: torch.Tensor,
+    lens: torch.Tensor,
+    match_count: torch.Tensor,
+    cap: int,
+    use_classes: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched scan: one document per row, no halo (each starts at root).
+
+    ``hay2d`` is uint8 ``[B, T]`` (zero-padded documents), ``lens`` int32
+    ``[B]``.  Returns compacted flat (row*T + t) positions, states and the
+    total.
+    """
+    return _compact_states(
+        *scan_batch(table, classes, hay2d, lens, match_count, use_classes),
+        cap,
+    )
+
+
+def _fetch(
+    pos: torch.Tensor, st: torch.Tensor, total: torch.Tensor, cap: int
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """One host fetch for all outputs (waits for the device)."""
+    with torch.profiler.record_function("ahocorasick:fetch"):
+        out = torch.cat([pos, st, total]).cpu().numpy()
+    return out[:cap], out[cap : 2 * cap], int(out[-1])
+
+
+def scan_device_batch(
+    am: Automaton,
+    docs: list,
+    tables: "DeviceTables",
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Scan many small documents in one device dispatch.
+
+    Returns flat ascending ``(positions, states, T)`` where document ``i``
+    occupies positions ``[i*T, i*T + len(doc_i))`` — the layout
+    ``ops.resolve.resolve_batch`` consumes directly.
+    """
+    B = len(docs)
+    if B == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), 1
+    Tmax = max((len(d) for d in docs), default=1)
+    T = _bucket(max(Tmax, 16), lo=16)
+    Bb = _bucket(max(B, MIN_LANES), lo=MIN_LANES)
+    with torch.profiler.record_function("ahocorasick:stage"):
+        buf = np.zeros((Bb, T), dtype=np.uint8)
+        lens = np.zeros(Bb, dtype=np.int32)
+        for i, d in enumerate(docs):
+            buf[i, : len(d)] = d
+            lens[i] = len(d)
+        hay2d = to_device(buf, tables.device)
+        lens_dev = torch.from_numpy(lens).to(tables.device)
+    cap = tables.last_cap
+    while True:
+        with torch.profiler.record_function("ahocorasick:batch_scan"):
+            outs = _scan_batch_compact(
+                tables.table,
+                tables.classes,
+                hay2d,
+                lens_dev,
+                tables.match_count,
+                cap,
+                tables.use_classes,
+            )
+        pos, st, total = _fetch(*outs, cap)
+        if total <= cap:
+            break
+        if total > max(DENSE_BAILOUT_MIN, (Bb * T) // 8):
+            # density bailout, same contract as scan_device: the host
+            # resolve paths own the match-dense regime (api._find_batch)
+            raise MatchDenseError(
+                f"{total} matched positions in a {Bb}x{T} batch"
+            )
+        cap = _bucket(total, lo=4096)
+    tables.last_cap = max(4096, _bucket(max(total, 1), lo=4096))
+    return pos[:total].astype(np.int64), st[:total].astype(np.int64), T
+
+
+#: build the stride-2 packed table when it fits in this many bytes.
+PACKED2_MAX_BYTES = 256 << 20
+
+
+def _stride2_scan_plain(
+    packed2: torch.Tensor, C: int, classes: torch.Tensor, hay: torch.Tensor,
+    n: int, L: int, T: int, halo: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K6: one vectorised step per byte pair."""
+    ext = classes.long()[build_lanes(hay, L, T, halo, n)]  # [L, halo+T]
+    cc = ext[:, 0::2] * C + ext[:, 1::2]  # [L, (halo+T)//2]
+    hp = halo // 2
+    flat = packed2.reshape(-1)
+    s = torch.zeros(L, dtype=torch.long, device=hay.device)
+    after_halo = s.to(torch.int32)
+    ends = torch.empty((L, T // 2), dtype=torch.int32, device=hay.device)
+    flags = torch.empty((L, T // 2), dtype=torch.int32, device=hay.device)
+    for j in range(hp + T // 2):
+        if j == hp:
+            after_halo = s.to(torch.int32)
+        v = flat[s * (C * C) + cc[:, j]]
+        s = (v >> 2).long()
+        if j >= hp:
+            ends[:, j - hp] = s
+            flags[:, j - hp] = v & 3
+    idx = torch.arange(L * T, device=hay.device)
+    # interleave (first, second) byte flags back to per-byte order
+    mask = torch.stack([flags & 1, flags >> 1], dim=-1).reshape(L * T)
+    mask = (mask > 0) & (idx < n)
+    return ends.reshape(-1), after_halo, mask.to(torch.uint8)
+
+
+def stride2_scan(
+    packed2: torch.Tensor, C: int, classes: torch.Tensor, hay: torch.Tensor,
+    n: int, L: int, T: int, halo: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6: (state after each pair int32 [L*T/2], state after the halo
+    int32 [L], match mask uint8 [L*T]); ``T`` and ``halo`` even."""
+    if hay.device.type == "cpu":
+        return _stride2_scan_plain(packed2, C, classes, hay, n, L, T, halo)
+    return _kernels.stride2_scan(packed2, C, classes, hay, n, L, T, halo)
+
+
+def _scan_compact2(
+    packed2: torch.Tensor,
+    table_classed: torch.Tensor,
+    classes: torch.Tensor,
+    hay: torch.Tensor,
+    n: int,
+    L: int,
+    T: int,
+    halo: int,
+    cap: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stride-2 scan: two haystack bytes per table load.
+
+    ``packed2[s, c1*C+c2]`` carries the two-byte-composed next state plus
+    per-pair match flags (``Automaton.packed2``), so the scan does half the
+    loads of the plain scan and needs no ``match_count`` test over the
+    state stream.  The state at a matched first byte of a pair is
+    recomputed here, at the O(matches) compacted positions only, from the
+    state entering the pair: the previous pair's end state, or the lane's
+    state after the halo.  ``halo`` and ``T`` must be even.
+    """
+    C = table_classed.shape[1]
+    ends, after_halo, mask = stride2_scan(
+        packed2, C, classes, hay, n, L, T, halo
+    )
+    positions, total = compact_sparse(mask, cap)
+    pos_safe = positions.clamp(min=0).long()
+    pair = pos_safe >> 1
+    half = T // 2
+    prev = torch.where(
+        pair % half == 0,
+        after_halo[pair // half],
+        ends[(pair - 1).clamp(min=0)],
+    )
+    first_cls = classes[hay[pair * 2].long()].long()
+    mid = table_classed[prev.long(), first_cls]
+    states_at = torch.where((pos_safe & 1) == 1, ends[pair], mid)
+    states_at = torch.where(positions >= 0, states_at, -1)
+    return positions, states_at, total
+
+
+def _sparse_scan_plain(
+    keys: torch.Tensor, targets: torch.Tensor, fail: torch.Tensor,
+    match_count: torch.Tensor, hay: torch.Tensor, n: int, L: int, T: int,
+    halo: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K7: per time column, a vectorised
+    ``searchsorted`` over the edge keys with a failure-link while loop."""
+    E = keys.numel()
+    ext = build_lanes(hay, L, T, halo, n)
+    dev = hay.device
+    s = torch.zeros(L, dtype=torch.long, device=dev)
+    out = torch.empty((L, T), dtype=torch.int32, device=dev)
+    for j in range(halo + T):
+        col = ext[:, j]
+        st = s
+        done = torch.zeros(L, dtype=torch.bool, device=dev)
+        res = torch.zeros(L, dtype=torch.long, device=dev)
+        while not bool(done.all()):
+            key = st * 257 + col
+            if E:
+                k = torch.searchsorted(keys, key).clamp(max=E - 1)
+                found = keys[k] == key
+                res = torch.where(~done & found, targets[k].long(), res)
+            else:
+                found = torch.zeros_like(done)
+            root_miss = ~done & ~found & (st == 0)
+            res = torch.where(root_miss, 0, res)
+            done = done | found | root_miss
+            st = torch.where(done, st, fail[st].long())
+        s = res
+        if j >= halo:
+            out[:, j - halo] = s
+    states = out.reshape(-1)
+    idx = torch.arange(L * T, device=dev)
+    mask = (match_count[states.long()] > 0) & (idx < n)
+    return states, mask.to(torch.uint8)
+
+
+def sparse_scan(
+    keys: torch.Tensor, targets: torch.Tensor, fail: torch.Tensor,
+    match_count: torch.Tensor, hay: torch.Tensor, n: int, L: int, T: int,
+    halo: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7: (states int32 [L*T], match mask uint8 [L*T]) over the sparse
+    CSR automaton (sorted int64 keys ``state*257 + byte``)."""
+    if hay.device.type == "cpu":
+        return _sparse_scan_plain(
+            keys, targets, fail, match_count, hay, n, L, T, halo
+        )
+    return _kernels.sparse_scan(
+        keys, targets, fail, match_count, hay, n, L, T, halo
+    )
+
+
+def _scan_compact_sparse(
+    keys: torch.Tensor,
+    targets: torch.Tensor,
+    fail: torch.Tensor,
+    match_count: torch.Tensor,
+    hay: torch.Tensor,
+    n: int,
+    L: int,
+    T: int,
+    halo: int,
+    cap: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sparse-CSR lane scan: binary-search goto + failure walk.
+
+    The NoncontiguousNFA engine's device path: smallest tables, slowest
+    scan.  Returns compacted (positions[cap], states[cap], total).
+    """
+    return _compact_states(
+        *sparse_scan(keys, targets, fail, match_count, hay, n, L, T, halo),
+        cap,
+    )
+
+
 class DeviceTables:
     """Per-automaton cache of device-resident tables + scan state."""
 
     def __init__(self, am: Automaton, engine: str,
-                 device: torch.device | str = "cpu") -> None:
+                 device: torch.device | str = "cpu",
+                 packed2_max_bytes: int = PACKED2_MAX_BYTES) -> None:
         self.device = torch.device(device)
         self.engine = engine
+        self.keys = self.targets = self.fail = None
+        self.table = None
         if engine == "dfa":
-            table = am.delta
+            self.table = self._upload(am.delta)
             classes = np.zeros(257, dtype=np.int32)  # unused placeholder
             self.use_classes = False
         elif engine == "classed":  # byte-classed (ContiguousNFA analogue)
-            table = am.delta_classed
+            self.table = self._upload(am.delta_classed)
             classes = am.byte_classes
             self.use_classes = True
-        else:
-            raise NotImplementedError(
-                f"the {engine!r} engine has no device scan in this package "
-                "yet; use a host backend or the dfa/classed engines"
-            )
-        self.table = torch.from_numpy(np.ascontiguousarray(table)).to(
-            self.device
-        )
-        self.classes = torch.from_numpy(
-            np.ascontiguousarray(classes, dtype=np.int32)
-        ).to(self.device)
-        self.match_count = torch.from_numpy(
-            np.ascontiguousarray(am.match_count)
-        ).to(self.device)
+        else:  # sparse CSR (NoncontiguousNFA analogue)
+            keys, targets, fail = am.sparse
+            self.keys = self._upload(keys)
+            self.targets = self._upload(targets)
+            self.fail = self._upload(fail)
+            classes = np.zeros(257, dtype=np.int32)
+            self.use_classes = False
+        self.classes = self._upload(np.asarray(classes, dtype=np.int32))
+        self.match_count = self._upload(am.match_count)
         self._am = am
+        # stride-2 tables, used by either dense engine when they fit (the
+        # pair table halves the loads of the load-bound scan); built on the
+        # first device scan.  The low-memory 'classed' engine gets a
+        # tighter default budget, but an explicit caller cap (0 disables)
+        # is always honored.
+        self.packed2 = None
+        self.classes2 = None
+        self.table_classed = None
+        budget = (
+            packed2_max_bytes
+            if engine == "dfa"
+            else min(packed2_max_bytes, 64 << 20)
+        )
+        self._packed2_ok = (
+            engine != "sparse"
+            and am.num_states < (1 << 29)
+            and am.packed2_bytes <= budget
+        )
         #: adaptive initial compaction capacity (sticky across calls)
         self.last_cap = 4096
 
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
     def ensure_packed2(self) -> bool:
-        """The stride-2 scan is not part of this package yet."""
-        return False
+        """Build + upload the stride-2 tables on first use; False if unfit."""
+        if not self._packed2_ok:
+            return False
+        if self.packed2 is None:
+            am = self._am
+            self.packed2 = self._upload(am.packed2)
+            self.classes2 = self._upload(
+                np.asarray(am.byte_classes, dtype=np.int32)
+            )
+            self.table_classed = self._upload(am.delta_classed)
+        return True
 
 
 def _bucket(x: int, lo: int = 16) -> int:
@@ -249,8 +576,9 @@ def scan_device(
     if n == 0:
         z = np.zeros(0, dtype=np.int64)
         return z, z
+    stride2 = tables.ensure_packed2()
     halo = am.max_len - 1
-    if tables.ensure_packed2():
+    if stride2:
         halo += halo & 1  # pairs must align across the halo boundary
     all_pos: list[np.ndarray] = []
     all_states: list[np.ndarray] = []
@@ -265,25 +593,29 @@ def scan_device(
             buf = np.zeros(L * T, dtype=np.uint8)
             buf[:m] = hay[ctx_start:seg_end]
             hay_dev = to_device(buf, tables.device)
+        # the engine's kernel (K7 sparse, K6 stride-2, else K2), with every
+        # argument but the compaction capacity bound
+        if tables.engine == "sparse":
+            span, scan = "sparse_scan", partial(
+                _scan_compact_sparse, tables.keys, tables.targets,
+                tables.fail, tables.match_count, hay_dev, m, L, T, halo,
+            )
+        elif stride2:
+            span, scan = "stride2_scan", partial(
+                _scan_compact2, tables.packed2, tables.table_classed,
+                tables.classes2, hay_dev, m, L, T, halo,
+            )
+        else:
+            span, scan = "lane_scan", partial(
+                _scan_compact, tables.table, tables.classes, hay_dev,
+                tables.match_count, m, L, T, halo,
+                use_classes=tables.use_classes,
+            )
         cap = tables.last_cap
         while True:
-            with torch.profiler.record_function("ahocorasick:lane_scan"):
-                pos, st, total = _scan_compact(
-                    tables.table,
-                    tables.classes,
-                    hay_dev,
-                    tables.match_count,
-                    m,
-                    L,
-                    T,
-                    halo,
-                    cap,
-                    tables.use_classes,
-                )
-            # one host fetch for all outputs (waits for the device)
-            with torch.profiler.record_function("ahocorasick:fetch"):
-                out = torch.cat([pos, st, total]).cpu().numpy()
-            pos, st, total = out[:cap], out[cap : 2 * cap], int(out[-1])
+            with torch.profiler.record_function(f"ahocorasick:{span}"):
+                outs = scan(cap=cap)
+            pos, st, total = _fetch(*outs, cap)
             if total <= cap:
                 break
             if total > max(DENSE_BAILOUT_MIN, m // 8):

@@ -7,12 +7,17 @@ Run from the repository root, with one CUDA card visible:
 
 It builds the CUDA kernels from ``ahocorasick_rs_tpu_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version at the main
-path's shapes (exact equality; all values are integers) and times both,
-then calls ``AhoCorasick.find_matches_as_indexes`` on a 64 MiB corpus with
-1,000 name patterns (the reference benchmark's LONG recipe, made from a
-seed), through the Teddy pipeline and through the dense lane scan, and
-checks every answer against the port's own host tier.  It also checks the
-streamed Teddy pipeline and the match-dense bailout.
+path's shapes (exact equality; all values are integers) and times both.
+Then it drives every device path through the public API and checks every
+answer against the port's own host tier: ``find_matches_as_indexes`` on a
+64 MiB corpus with 1,000 name patterns (the upstream benchmark's LONG
+recipe, made from a seed) through the Teddy pipeline, the stride-2 dense
+scan, the one-byte dense scan (10,000 names, whose pair table is over
+budget), the sparse engine and the match-dense bailout;
+``find_matches_as_indexes_batch`` on the LONG batch (20,000 documents of
+624-633 bytes) through the Teddy pipeline and the batch kernel, and on the
+SHORT batch (10,000 documents of 72-75 bytes).  It also checks the
+streamed Teddy pipeline.
 
 Output: progress lines, the card's name and power limit as ``nvidia-smi``
 reports them, one ``{"kernels": [...]}`` JSON line, and as the last line
@@ -38,6 +43,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 CORPUS_MIB = 64
 PATTERNS = 1000
+#: name count of the one-byte dense path: its pair table exceeds the
+#: classed engine's 64 MiB stride-2 budget
+PATTERNS_K2 = 10_000
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes per second
 HBM_BYTES_PER_S = 3.35e12
 
@@ -69,6 +77,56 @@ def synth_corpus(
         off = int(ln) * line_len + int(rng.integers(0, line_len - 12))
         corpus[off : off + len(name)] = np.frombuffer(name, dtype=np.uint8)
     return corpus
+
+
+def long_docs(names: list[bytes]) -> list[str]:
+    """The LONG batch: 20,000 lines of 624-633 characters, one in 90
+    carrying a name (the upstream benchmark's LONG recipe)."""
+    filler = (
+        "no one who had ever seen {} in her infancy would have supposed "
+        "her born to be an heroine; her situation in life, the character "
+        "of her father and mother, her own person and disposition were "
+        "all equally against her, and the rest of this line is ordinary "
+        "prose of roughly six hundred characters so the haystack length "
+        "matches the reference recipe with room to spare for the counter "
+        "value {} at the end, padded with plain words that never match "
+        "any generated name pattern because they are common english and "
+        "the names are uniform random lowercase strings of length five "
+        "to eleven which almost surely do not occur in this text"
+    )
+    out = []
+    for i in range(20_000):
+        name = names[i % len(names)].decode() if i % 90 == 0 else "nobody"
+        out.append(filler.format(name, i))
+    return out
+
+
+def short_case() -> tuple[list[str], list[str]]:
+    """The SHORT batch: 10 patterns, 10,000 documents of 72-75 bytes (the
+    upstream benchmark's SHORT recipe)."""
+    patterns = [
+        "abc", "hello", "world", "aardvark", "fish",
+        "what", "arbitrarymonkey", "birds", "host7", "host76",
+    ]
+    docs = [
+        f"arbitrarymonkey says hello to fish host76, 0.123 my friend, "
+        f"but why??? {i}"
+        for i in range(10_000)
+    ]
+    return patterns, docs
+
+
+def batch_layout(docs: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    """The padded ``[Bb, T]`` buffer and lens that scan_device_batch
+    stages for ``docs`` (powers of two, at least 8 rows and 16 columns)."""
+    T = 1 << (max(max(len(d) for d in docs), 16) - 1).bit_length()
+    Bb = 1 << (max(len(docs), 8) - 1).bit_length()
+    buf = np.zeros((Bb, T), dtype=np.uint8)
+    lens = np.zeros(Bb, dtype=np.int32)
+    for i, d in enumerate(docs):
+        buf[i, : len(d)] = np.frombuffer(d, dtype=np.uint8)
+        lens[i] = len(d)
+    return buf, lens
 
 
 class SmokeFailure(RuntimeError):
@@ -110,7 +168,7 @@ def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def phase_kernels(dev, names, corpus) -> dict:
+def phase_kernels(dev, names, corpus, long_batch) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     from ahocorasick_rs_tpu_torch import _kernels
     from ahocorasick_rs_tpu_torch.models.automaton import build_automaton
@@ -246,6 +304,110 @@ def phase_kernels(dev, names, corpus) -> dict:
         "groups_shape": groups_shape,
         "groups_ms": groups_ms,
     }
+
+    # K6: stride-2 scan at the dense path's layout, classed tables (the
+    # dense phase runs ContiguousNFA; its 19.6 MiB pair table fits the
+    # 64 MiB budget), halo rounded up to even
+    require(cls.ensure_packed2(), "the pair table of the names does not fit")
+    halo2 = halo + (halo & 1)
+    L2, T2 = scan_cuda.choose_layout(n, halo2)
+    buf2 = np.zeros(L2 * T2, dtype=np.uint8)
+    buf2[:n] = corpus
+    hay2 = torch.from_numpy(buf2).to(dev)
+    C = cls.table_classed.shape[1]
+    k6_args = (cls.packed2, C, cls.classes2, hay2, n, L2, T2, halo2)
+    got = _kernels.stride2_scan(*k6_args)
+    want = scan_cuda._stride2_scan_plain(*k6_args)
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    require(err == 0, f"K6 stride-2 scan differs from its plain version "
+                      f"({err})")
+    one_lane2 = (cls.packed2, C, cls.classes2, hay2[:T2].contiguous(), T2,
+                 1, T2, halo2)
+    out["stride2_scan"] = {
+        "shape": f"L={L2} T={T2} halo={halo2}, packed2 int32 "
+                 f"{list(cls.packed2.shape)}",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: _kernels.stride2_scan(*k6_args), 5),
+        "plain_ms": cuda_ms(
+            lambda: scan_cuda._stride2_scan_plain(*k6_args), 1
+        ),
+        # haystack, pair table and classes read; int32 pair end states,
+        # the lanes' after-halo states and the uint8 mask written
+        "bound_ms": bound_ms(
+            L2 * T2 * (1 + 2 + 1) + 4 * (cls.packed2.numel() + 257 + L2)
+        ),
+        "bound_by": "bytes",
+        "library_ms": None,
+        # one lane alone: (T + halo) / 2 dependent pair-table loads
+        "dep_chain_ms": cuda_ms(
+            lambda: _kernels.stride2_scan(*one_lane2), 20
+        ),
+    }
+
+    # K5: the batch kernel at the LONG batch's layout, DFA tables (the
+    # batch phases run the default DFA engine)
+    buf5, lens5 = batch_layout([d.encode() for d in long_batch])
+    hay5 = torch.from_numpy(buf5).to(dev)
+    lens5_d = torch.from_numpy(lens5).to(dev)
+    k5_args = (dfa.table, dfa.classes, hay5, lens5_d, dfa.match_count,
+               dfa.use_classes)
+    got = _kernels.batch_scan(*k5_args)
+    want = scan_cuda._batch_scan_plain(*k5_args)
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    require(err == 0, f"K5 batch scan differs from its plain version ({err})")
+    one_row = (dfa.table, dfa.classes, hay5[:1].contiguous(),
+               lens5_d[:1].contiguous(), dfa.match_count, dfa.use_classes)
+    B5, T5 = buf5.shape
+    out["batch_scan"] = {
+        "shape": f"hay2d uint8 [{B5}, {T5}] ({len(long_batch)} real rows), "
+                 f"table int32 {list(dfa.table.shape)}",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: _kernels.batch_scan(*k5_args), 5),
+        "plain_ms": cuda_ms(lambda: scan_cuda._batch_scan_plain(*k5_args), 1),
+        # buffer, lens, table and match counts read; int32 states and the
+        # uint8 mask written
+        "bound_ms": bound_ms(
+            B5 * T5 * (1 + 4 + 1) + 4 * B5
+            + 4 * (dfa.table.numel() + am.num_states)
+        ),
+        "bound_by": "bytes",
+        "library_ms": None,
+        # one row alone: T dependent table loads
+        "dep_chain_ms": cuda_ms(lambda: _kernels.batch_scan(*one_row), 20),
+    }
+
+    # K7: the sparse CSR scan at the sparse path's layout (K2's: the same
+    # halo); its plain version walks every failure link of every lane in
+    # a vectorised loop and takes seconds here
+    sp = scan_cuda.DeviceTables(am, "sparse", dev)
+    k7_args = (sp.keys, sp.targets, sp.fail, sp.match_count, hay, n, L, T,
+               halo)
+    got = _kernels.sparse_scan(*k7_args)
+    want = scan_cuda._sparse_scan_plain(*k7_args)
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    require(err == 0, f"K7 sparse scan differs from its plain version "
+                      f"({err})")
+    one_lane7 = (sp.keys, sp.targets, sp.fail, sp.match_count,
+                 hay[:T].contiguous(), T, 1, T, halo)
+    E = sp.keys.numel()
+    out["sparse_scan"] = {
+        "shape": f"L={L} T={T} halo={halo}, keys int64 [{E}], fail int32 "
+                 f"[{sp.fail.numel()}]",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: _kernels.sparse_scan(*k7_args), 5),
+        "plain_ms": cuda_ms(
+            lambda: scan_cuda._sparse_scan_plain(*k7_args), 1, warmup=0
+        ),
+        # haystack, keys, targets, fail links and match counts read; int32
+        # states and the uint8 mask written
+        "bound_ms": bound_ms(
+            L * T * (1 + 4 + 1) + 12 * E + 8 * am.num_states
+        ),
+        "bound_by": "bytes",
+        "library_ms": None,
+        # one lane alone: T + halo steps of binary searches and fail walks
+        "dep_chain_ms": cuda_ms(lambda: _kernels.sparse_scan(*one_lane7), 5),
+    }
     return out
 
 
@@ -308,7 +470,8 @@ def phase_streamed(scanner, corpus) -> dict:
 
 
 def phase_dense(port, names_s, text) -> dict:
-    """The dense lane-scan path: ContiguousNFA, Standard, overlapping."""
+    """The dense path: ContiguousNFA, Standard, overlapping, Teddy off.
+    The names' pair table fits the 64 MiB budget, so it runs K6."""
     from ahocorasick_rs_tpu_torch import _kernels
 
     impl = port.Implementation.ContiguousNFA
@@ -323,14 +486,119 @@ def phase_dense(port, names_s, text) -> dict:
         times.append(time.perf_counter() - t0)
         require(ac.stats()["last_backend"] == "device", "dense call not device")
     launches = dict(_kernels.LAUNCHES)
-    for k in ("lane_scan", "compact"):
+    for k in ("stride2_scan", "compact"):
         require(launches[k] > 0, f"dense path launched no {k} kernel")
+    require(launches["lane_scan"] == 0, "dense path ran K2, not K6")
     host = host_backend()
     want = port.AhoCorasick(
         names_s, implementation=impl, backend=host
     ).find_matches_as_indexes(text, overlapping=True)
     require(got == want, f"dense tuples differ from the {host} tier")
+    return {"launches": launches, "matches": len(got), "device_call_s": times,
+            "want": want}
+
+
+def phase_dense_k2(port, text) -> dict:
+    """The one-byte dense scan (K2) on a real path: ContiguousNFA over
+    10,000 names, whose pair table is over the 64 MiB classed budget."""
+    from ahocorasick_rs_tpu_torch import _kernels
+
+    names_s = [
+        x.decode()
+        for x in synth_names(PATTERNS_K2, np.random.default_rng(SEED + 1))
+    ]
+    impl = port.Implementation.ContiguousNFA
+    ac = port.AhoCorasick(names_s, implementation=impl, backend="device")
+    ac._teddy_state = "off"
+    am = ac._automaton
+    require(am.packed2_bytes > 64 << 20,
+            f"pair table of {am.packed2_bytes} bytes fits the budget")
+    _kernels.reset_launches()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = ac.find_matches_as_indexes(text, overlapping=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        require(ac.stats()["last_backend"] == "device", "K2 call not device")
+    launches = dict(_kernels.LAUNCHES)
+    require(launches["lane_scan"] > 0, "the K2 path launched no lane_scan")
+    require(launches["stride2_scan"] == 0, "the K2 path ran K6")
+    host = host_backend()
+    want = port.AhoCorasick(
+        names_s, implementation=impl, backend=host
+    ).find_matches_as_indexes(text, overlapping=True)
+    require(got == want, f"K2 path tuples differ from the {host} tier")
+    return {
+        "launches": launches, "matches": len(got), "device_call_s": times,
+        "states": am.num_states, "classes": am.num_classes,
+        "packed2_bytes": am.packed2_bytes,
+    }
+
+
+def phase_sparse(port, names_s, text, want) -> dict:
+    """The sparse engine on the device (K7): NoncontiguousNFA, Standard,
+    overlapping, over the 64 MiB corpus."""
+    from ahocorasick_rs_tpu_torch import _kernels
+
+    impl = port.Implementation.NoncontiguousNFA
+    ac = port.AhoCorasick(names_s, implementation=impl, backend="device")
+    _kernels.reset_launches()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = ac.find_matches_as_indexes(text, overlapping=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        require(ac.stats()["last_backend"] == "device", "sparse not device")
+    launches = dict(_kernels.LAUNCHES)
+    for k in ("sparse_scan", "compact"):
+        require(launches[k] > 0, f"sparse path launched no {k} kernel")
+    # ``want`` is the host tier's answer for the same names and text
+    require(got == want, "sparse tuples differ from the host tier")
     return {"launches": launches, "matches": len(got), "device_call_s": times}
+
+
+def phase_batch(port, patterns, docs, teddy_state, tier, kernel) -> dict:
+    """``find_matches_as_indexes_batch`` with ``backend="device"``, for
+    Standard and LeftmostLongest, three timed calls each; every answer
+    held against the per-document loop on the host tier."""
+    from ahocorasick_rs_tpu_torch import _kernels
+
+    host = host_backend()
+    out: dict = {"launches": None, "tier": tier, "host_tier": host,
+                 "documents": len(docs),
+                 "bytes": sum(len(d.encode()) for d in docs)}
+    _kernels.reset_launches()
+    for kind_name in ("Standard", "LeftmostLongest"):
+        kind = port.MatchKind[kind_name]
+        ac = port.AhoCorasick(patterns, matchkind=kind, backend="device")
+        if teddy_state is not None:
+            ac._teddy_state = teddy_state
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = ac.find_matches_as_indexes_batch(docs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            require(ac.stats()["last_backend"] == tier,
+                    f"batch call ran {ac.stats()['last_backend']!r}, "
+                    f"not {tier}")
+        ref = port.AhoCorasick(patterns, matchkind=kind, backend=host)
+        want = [ref.find_matches_as_indexes(d) for d in docs]
+        require(got == want, f"{tier} {kind_name} differs from the "
+                             f"{host} per-document loop")
+        out[kind_name] = {"matches": sum(map(len, got)),
+                          "device_call_s": times}
+    out["matches"] = out["Standard"]["matches"]
+    out["device_call_s"] = (
+        out["Standard"]["device_call_s"]
+        + out["LeftmostLongest"]["device_call_s"]
+    )
+    out["launches"] = dict(_kernels.LAUNCHES)
+    require(out["launches"][kernel] > 0, f"{tier} launched no {kernel}")
+    require(out["launches"]["compact"] > 0, f"{tier} launched no compact")
+    return out
 
 
 def phase_bailout(port) -> dict:
@@ -348,7 +616,9 @@ def phase_bailout(port) -> dict:
     got = ac.find_matches_as_indexes(text)
     tier = ac.stats()["last_backend"]
     require(tier in ("native_resolve", "numpy"), f"bailout ran {tier!r}")
-    require(_kernels.LAUNCHES["lane_scan"] > 0, "bailout never scanned")
+    launches = dict(_kernels.LAUNCHES)
+    require(launches["lane_scan"] + launches["stride2_scan"] > 0,
+            "bailout never ran a dense scan kernel")
     try:
         scan_cuda.scan_device(
             ac._automaton, np.frombuffer(text.encode(), np.uint8),
@@ -361,7 +631,7 @@ def phase_bailout(port) -> dict:
         pats, matchkind=kind, backend=host_backend()
     ).find_matches_as_indexes(text)
     require(got == want, "bailout tuples differ from the host tier")
-    return {"rerouted_to": tier, "matches": len(got)}
+    return {"rerouted_to": tier, "matches": len(got), "launches": launches}
 
 
 KERNELS = {
@@ -373,6 +643,14 @@ KERNELS = {
                 "ahocorasick_rs_tpu/ops/scan_jax.py:94"),
     "verify": ("K4 verify", "ahocorasick_rs_tpu_torch/csrc/teddy.cu",
                "ahocorasick_rs_tpu/ops/scan_teddy.py:245"),
+    "batch_scan": ("K5 batch_scan", "ahocorasick_rs_tpu_torch/csrc/batch.cu",
+                   "ahocorasick_rs_tpu/ops/scan_jax.py:180"),
+    "stride2_scan": ("K6 stride2_scan",
+                     "ahocorasick_rs_tpu_torch/csrc/stride2.cu",
+                     "ahocorasick_rs_tpu/ops/scan_jax.py:277"),
+    "sparse_scan": ("K7 sparse_scan",
+                    "ahocorasick_rs_tpu_torch/csrc/sparse.cu",
+                    "ahocorasick_rs_tpu/ops/scan_jax.py:339"),
 }
 
 
@@ -410,37 +688,56 @@ def main() -> int:
     corpus = synth_corpus(CORPUS_MIB << 20, names, rng)
     text = corpus.tobytes().decode()
     names_s = [x.decode() for x in names]
+    long_batch = long_docs(names)
+    short_patterns, short_batch = short_case()
 
     report: dict = {"gpu": smi, "device_name": name}
     t = time.perf_counter()
-    report["kernels"] = phase_kernels(dev, names, corpus)
+    report["kernels"] = phase_kernels(dev, names, corpus, long_batch)
     log(f"kernels: equal to their plain versions "
         f"({time.perf_counter() - t:.1f} s)")
-    t = time.perf_counter()
-    teddy = phase_teddy(port, names_s, text)
+
+    def path(label: str, fn, *args) -> dict:
+        t = time.perf_counter()
+        res = fn(*args)
+        calls = res.get("device_call_s")
+        shown = (f", device calls {[round(x * 1e3, 1) for x in calls]} ms"
+                 if calls else "")
+        log(f"{label}: {res.get('matches', '')} matches{shown}, launches "
+            f"{res.get('launches')} ({time.perf_counter() - t:.1f} s)")
+        return res
+
+    teddy = path("teddy path", phase_teddy, port, names_s, text)
     scanner = teddy.pop("scanner")
-    report["teddy_path"] = teddy
-    log(f"teddy path: {teddy['matches']} matches, device calls "
-        f"{[round(x * 1e3, 1) for x in teddy['device_call_s']]} ms, "
-        f"launches {teddy['launches']} ({time.perf_counter() - t:.1f} s)")
     report["streamed"] = phase_streamed(scanner, corpus)
     log(f"streamed teddy: equal ({report['streamed']['occurrences']} "
         "occurrences)")
-    t = time.perf_counter()
-    dense = phase_dense(port, names_s, text)
-    report["dense_path"] = dense
-    log(f"dense path: {dense['matches']} matches, device calls "
-        f"{[round(x * 1e3, 1) for x in dense['device_call_s']]} ms, "
-        f"launches {dense['launches']} ({time.perf_counter() - t:.1f} s)")
-    report["bailout"] = phase_bailout(port)
-    log(f"bailout: re-routed to {report['bailout']['rerouted_to']}")
+    dense = path("dense path (K6)", phase_dense, port, names_s, text)
+    dense_want = dense.pop("want")
+    paths = {
+        "teddy": teddy,
+        "dense": dense,
+        "dense_k2": path("dense path (K2)", phase_dense_k2, port, text),
+        "sparse": path("sparse path (K7)", phase_sparse, port, names_s, text,
+                       dense_want),
+        "bailout": path("bailout", phase_bailout, port),
+        "batch_long_teddy": path(
+            "LONG batch, teddy_batch", phase_batch, port, names_s,
+            long_batch, None, "teddy_batch", "fire"),
+        "batch_long_dense": path(
+            "LONG batch, device_batch", phase_batch, port, names_s,
+            long_batch, "off", "device_batch", "batch_scan"),
+        "batch_short": path(
+            "SHORT batch, device_batch", phase_batch, port, short_patterns,
+            short_batch, None, "device_batch", "batch_scan"),
+    }
+    report["paths"] = paths
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():
         k = report["kernels"][key]
-        by_path = {
-            "teddy": teddy["launches"][key], "dense": dense["launches"][key],
-        }
+        by_path = {p: r["launches"][key] for p, r in paths.items()}
+        require(sum(by_path.values()) > 0, f"{kname} never ran on a path")
         rows.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

@@ -5,11 +5,14 @@ Run from the repository root, with one CUDA card visible:
 
     python3 profile_main_path.py
 
-It makes the same seeded workload as ``chip_smoke.py`` (1,000 name
-patterns, a 64 MiB corpus), warms up two matchers of the PyTorch port (the
-Teddy path: LeftmostLongest with the DFA engine; the dense path:
-ContiguousNFA, Standard, overlapping, Teddy off), times three calls of
-each on the host clock, then traces one call of each with
+It makes the same seeded workloads as ``chip_smoke.py`` (1,000 name
+patterns, a 64 MiB corpus; the LONG and SHORT document batches), warms up
+the matchers of the PyTorch port (the Teddy path: LeftmostLongest with the
+DFA engine; the dense path: ContiguousNFA, Standard, overlapping, Teddy
+off, which runs the stride-2 scan; the sparse engine, Standard,
+overlapping, with ``backend="device"``; the LONG batch through the Teddy
+pipeline and through the batch kernel; the SHORT batch), times three calls
+of each on the host clock, then traces one call of each with
 ``torch.profiler``.  For each path it prints one JSON line: the wall time
 of the calls, the host time of each ``ahocorasick:*`` span, the device
 time of each kernel and copy, the union of device activity and the
@@ -84,14 +87,17 @@ def profile_path(label: str, call) -> dict:
     if not by_name:
         raise SystemExit(f"{label}: the profiler saw no device activity")
     outside = traced_ms - sum(
-        spans.get(k, 0.0) for k in ("ahocorasick:scan", "ahocorasick:resolve")
+        spans.get(k, 0.0)
+        for k in ("ahocorasick:scan", "ahocorasick:scan_batch",
+                  "ahocorasick:resolve")
     )
     return {
         "path": label,
         "wall_ms": walls,
         "traced_wall_ms": traced_ms,
         "span_ms": spans,
-        # the API layer around _find: str -> UTF-8 encode, index mapping
+        # the API layer around _find / _find_batch: str -> UTF-8 encode,
+        # index mapping
         "outside_spans_ms": outside,
         "device_ms_by_name": {k: v / 1e3 for k, v in by_name.items()},
         "device_busy_ms": busy_us / 1e3,
@@ -106,7 +112,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import ahocorasick_rs_tpu_torch as port
     from chip_smoke import (
-        CORPUS_MIB, PATTERNS, SEED, synth_corpus, synth_names,
+        CORPUS_MIB, PATTERNS, SEED, long_docs, short_case, synth_corpus,
+        synth_names,
     )
 
     smi = subprocess.run(
@@ -130,8 +137,26 @@ def main() -> int:
         backend="device",
     )
     dense._teddy_state = "off"
-    for ac, kw in ((teddy, {}), (dense, {"overlapping": True})):
+    sparse = port.AhoCorasick(
+        names_s, implementation=port.Implementation.NoncontiguousNFA,
+        backend="device",
+    )
+    for ac, kw in ((teddy, {}), (dense, {"overlapping": True}),
+                   (sparse, {"overlapping": True})):
         ac.find_matches_as_indexes(text, **kw)  # tables, build, caps
+    long_batch = long_docs(names)
+    short_patterns, short_batch = short_case()
+    batches = {
+        "batch_long_teddy": (port.AhoCorasick(names_s, backend="device"),
+                             long_batch, "teddy_batch"),
+        "batch_long_dense": (port.AhoCorasick(names_s, backend="device"),
+                             long_batch, "device_batch"),
+        "batch_short": (port.AhoCorasick(short_patterns, backend="device"),
+                        short_batch, "device_batch"),
+    }
+    batches["batch_long_dense"][0]._teddy_state = "off"
+    for ac, docs, _ in batches.values():
+        ac.find_matches_as_indexes_batch(docs)  # tables, build, caps
     torch.cuda.synchronize()
     encode_ms = []
     for _ in range(3):
@@ -144,11 +169,24 @@ def main() -> int:
             "dense",
             lambda: dense.find_matches_as_indexes(text, overlapping=True),
         ),
+        profile_path(
+            "sparse",
+            lambda: sparse.find_matches_as_indexes(text, overlapping=True),
+        ),
     ]
+    for label, (ac, docs, tier) in batches.items():
+        rows.append(profile_path(
+            label, lambda ac=ac, docs=docs: ac.find_matches_as_indexes_batch(
+                docs
+            ),
+        ))
+        if ac.stats()["last_backend"] != tier:
+            raise SystemExit(f"{label} did not run {tier}")
     if teddy.stats()["last_backend"] != "teddy":
         raise SystemExit("the Teddy matcher did not run the Teddy path")
-    if dense.stats()["last_backend"] != "device":
-        raise SystemExit("the dense matcher did not run the device tier")
+    for ac in (dense, sparse):
+        if ac.stats()["last_backend"] != "device":
+            raise SystemExit("a dense matcher did not run the device tier")
     for row in rows:
         row["gpu"] = smi
         row["encode_ms"] = encode_ms

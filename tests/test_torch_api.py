@@ -302,9 +302,10 @@ def test_device_must_be_asked_for_without_a_card(monkeypatch):
             port.BytesAhoCorasick([b"x"], **kw)
     with pytest.raises(NotImplementedError, match="sharded"):
         port.AhoCorasick(["x"], backend="sharded", device="cpu")
+    # the sparse engine scans on the device tier (K7) when asked for it
     sparse = port.BytesAhoCorasick(
         [b"x"], implementation=port.Implementation.NoncontiguousNFA,
         backend="device", device="cpu",
     )
-    with pytest.raises(NotImplementedError, match="sparse"):
-        sparse.find_matches_as_indexes(b"xx")
+    assert sparse.find_matches_as_indexes(b"xx") == [(0, 0, 1), (0, 1, 2)]
+    assert sparse.stats()["last_backend"] == "device"

@@ -197,5 +197,157 @@ def test_api_device_tier_counts_launches(cuda) -> None:
         names, backend="numpy", device=cuda
     ).find_matches_as_indexes(hay, overlapping=True)
     assert dense.stats()["last_backend"] == "device"
-    assert _kernels.LAUNCHES["lane_scan"] > 0
+    # the pair table of 50 names fits, so the dense tier runs K6
+    assert _kernels.LAUNCHES["stride2_scan"] > 0
+    assert _kernels.LAUNCHES["lane_scan"] == 0
     assert _kernels.LAUNCHES["compact"] > 0
+
+
+# name sets whose halo (max_len - 1) is odd, even, and 0 (one-byte names)
+HALO_NAMES = {
+    "odd": _names(21, 40) + [b"abcdefghabcdefgh"],
+    "even": _names(22, 40) + [b"abcdefghabcdefg"],
+    "zero": [b"a", b"c", b"h"],
+}
+
+
+@pytest.mark.parametrize("engine", ["dfa", "classed"])
+@pytest.mark.parametrize("halo_kind", sorted(HALO_NAMES))
+@pytest.mark.parametrize("n", [1, 5001, 70_000])
+def test_stride2_kernel_equals_plain(
+    cuda, engine: str, halo_kind: str, n: int
+) -> None:
+    names = HALO_NAMES[halo_kind]
+    am = build_automaton(names)
+    tabs = scan_cuda.DeviceTables(am, engine, cuda)
+    assert tabs.ensure_packed2()
+    halo = am.max_len - 1
+    halo += halo & 1
+    L, T = scan_cuda.choose_layout(n, halo)
+    buf = np.zeros(L * T, dtype=np.uint8)
+    buf[:n] = np.frombuffer(_corpus(n, n + 16, names, n // 50), np.uint8)[:n]
+    hay = torch.from_numpy(buf).to(cuda)
+    C = tabs.table_classed.shape[1]
+    args = (tabs.packed2, C, tabs.classes2, hay, n, L, T, halo)
+    got = scan_cuda.stride2_scan(*args)
+    want = scan_cuda._stride2_scan_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    cpu = scan_cuda._scan_compact2(
+        tabs.packed2.cpu(), tabs.table_classed.cpu(), tabs.classes2.cpu(),
+        hay.cpu(), n, L, T, halo, 4096,
+    )
+    dev = scan_cuda._scan_compact2(
+        tabs.packed2, tabs.table_classed, tabs.classes2, hay, n, L, T, halo,
+        4096,
+    )
+    for a, b in zip(dev, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n", [1, 4097, 60_000])
+def test_sparse_kernel_equals_plain(cuda, n: int) -> None:
+    # "abcd" then "bcx": the walk reaches depth 3 in "abc", misses on "x"
+    # and follows fail links ("bc", then "c", then the root) before it
+    # finds the edge of "bcx"; "q" misses everywhere and ends at the root
+    names = _names(31, 30) + [b"abcd", b"bcx", b"cdq"]
+    am = build_automaton(names)
+    tabs = scan_cuda.DeviceTables(am, "sparse", cuda)
+    halo = am.max_len - 1
+    L, T = scan_cuda.choose_layout(n, halo)
+    body = (_corpus(n, n, names, n // 40) + b"abcxabcqbcx" * 8)[-n:]
+    buf = np.zeros(L * T, dtype=np.uint8)
+    buf[:n] = np.frombuffer(body, np.uint8)
+    hay = torch.from_numpy(buf).to(cuda)
+    args = (tabs.keys, tabs.targets, tabs.fail, tabs.match_count, hay, n, L,
+            T, halo)
+    st, mask = scan_cuda.sparse_scan(*args)
+    st_p, mask_p = scan_cuda._sparse_scan_plain(*args)
+    assert torch.equal(st, st_p) and torch.equal(mask, mask_p)
+
+
+@pytest.mark.parametrize("engine", ["dfa", "classed"])
+@pytest.mark.parametrize("B", [1, 13, 200])
+def test_batch_kernel_equals_plain(cuda, engine: str, B: int) -> None:
+    names = _names(41, 40)
+    am = build_automaton(names)
+    tabs = scan_cuda.DeviceTables(am, engine, cuda)
+    rng = np.random.default_rng(B)
+    docs = [
+        np.frombuffer(_corpus(i, int(rng.integers(20, 300)), names, 3),
+                      np.uint8)
+        for i in range(B)
+    ]
+    docs[0] = docs[0][:0]  # an empty document: an all-PAD row
+    T = scan_cuda._bucket(max(max(len(d) for d in docs), 16), lo=16)
+    Bb = scan_cuda._bucket(max(B, scan_cuda.MIN_LANES),
+                           lo=scan_cuda.MIN_LANES)
+    buf = np.zeros((Bb, T), dtype=np.uint8)
+    buf[:, :] = ord("a")  # padding bytes must read as PAD, not as 'a'
+    lens = np.zeros(Bb, dtype=np.int32)
+    for i, d in enumerate(docs):
+        buf[i, : len(d)] = d
+        lens[i] = len(d)
+    args = (tabs.table, tabs.classes, torch.from_numpy(buf).to(cuda),
+            torch.from_numpy(lens).to(cuda), tabs.match_count,
+            tabs.use_classes)
+    st, mask = scan_cuda.scan_batch(*args)
+    st_p, mask_p = scan_cuda._batch_scan_plain(*args)
+    assert torch.equal(st, st_p) and torch.equal(mask, mask_p)
+    want = scan_cuda.scan_device_batch(
+        am, docs, scan_cuda.DeviceTables(am, engine, "cpu")
+    )
+    got = scan_cuda.scan_device_batch(am, docs, tabs)
+    assert got[2] == want[2]
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sparse_device_path_equals_cpu(cuda) -> None:
+    names = _names(51, 60)
+    am = build_automaton(names)
+    hay = np.frombuffer(_corpus(52, 200_000, names, 400), np.uint8)
+    for seg in (1 << 20, 50_000):
+        want = scan_cuda.scan_device(
+            am, hay, scan_cuda.DeviceTables(am, "sparse", "cpu"),
+            segment_bytes=seg,
+        )
+        got = scan_cuda.scan_device(
+            am, hay, scan_cuda.DeviceTables(am, "sparse", cuda),
+            segment_bytes=seg,
+        )
+        assert len(want[0]) > 100
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_api_batch_and_sparse_count_launches(cuda) -> None:
+    names = [n.decode() for n in _names(61, 50)]
+    rng = np.random.default_rng(62)
+    docs = [
+        _corpus(i, int(rng.integers(60, 700)), [n.encode() for n in names],
+                2).decode()
+        for i in range(3000)
+    ]
+    host = AhoCorasick(names, backend="native", device=cuda)
+    want = [host.find_matches_as_indexes(d) for d in docs]
+    for teddy, tier, kernel in (
+        ("force", "teddy_batch", "fire"), ("off", "device_batch", "batch_scan")
+    ):
+        _kernels.reset_launches()
+        ac = AhoCorasick(names, backend="device", device=cuda)
+        ac._teddy_state = teddy
+        assert ac.find_matches_as_indexes_batch(docs) == want
+        assert ac.stats()["last_backend"] == tier
+        assert _kernels.LAUNCHES[kernel] > 0
+    _kernels.reset_launches()
+    sparse = AhoCorasick(
+        names, implementation=Implementation.NoncontiguousNFA,
+        backend="device", device=cuda,
+    )
+    text = "".join(docs[:300])
+    assert sparse.find_matches_as_indexes(text, overlapping=True) == (
+        host.find_matches_as_indexes(text, overlapping=True)
+    )
+    assert sparse.stats()["last_backend"] == "device"
+    assert _kernels.LAUNCHES["sparse_scan"] > 0

@@ -2,9 +2,9 @@
 the Teddy pipeline (``scan_teddy``) equal the JAX package's on the same
 inputs, run on the CPU through the kernels' plain versions.
 
-The dense path is held against a reference ``DeviceTables(am, engine,
-packed2_max_bytes=0)``: the port has no stride-2 scan yet, and the
-stride-2 scan gives the same (position, state) list anyway.  Every
+The dense path here is the one-byte scan (K2): both sides build their
+``DeviceTables`` with ``packed2_max_bytes=0``, which turns the stride-2
+scan off (``test_torch_engines.py`` holds the stride-2 scan).  Every
 comparison is exact.
 """
 
@@ -111,7 +111,8 @@ def test_scan_device_equals_reference(engine: str, segment_bytes: int) -> None:
         segment_bytes=segment_bytes,
     )
     got = port_scan.scan_device(
-        am, hay, port_scan.DeviceTables(am, engine, "cpu"),
+        am, hay,
+        port_scan.DeviceTables(am, engine, "cpu", packed2_max_bytes=0),
         segment_bytes=segment_bytes,
     )
     assert len(want[0]) > 40
@@ -122,7 +123,7 @@ def test_scan_device_equals_reference(engine: str, segment_bytes: int) -> None:
 
 def test_scan_device_empty_and_sticky_cap() -> None:
     am = build_automaton([b"ab", b"ba"])
-    tabs = port_scan.DeviceTables(am, "dfa", "cpu")
+    tabs = port_scan.DeviceTables(am, "dfa", "cpu", packed2_max_bytes=0)
     pos, st = port_scan.scan_device(am, np.zeros(0, np.uint8), tabs)
     assert len(pos) == len(st) == 0
     hay = np.frombuffer(b"ab" * 6000, dtype=np.uint8)
@@ -158,7 +159,8 @@ def test_match_dense_error_on_same_inputs(
          ref_scan.DeviceTables(ref_am, engine, packed2_max_bytes=0),
          RefDenseError),
         (port_scan.scan_device, am,
-         port_scan.DeviceTables(am, engine, "cpu"), MatchDenseError),
+         port_scan.DeviceTables(am, engine, "cpu", packed2_max_bytes=0),
+         MatchDenseError),
     ):
         try:
             outcomes.append(scan(a, arr, tabs))
