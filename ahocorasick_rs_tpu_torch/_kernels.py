@@ -36,10 +36,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: launches per kernel since the last :func:`reset_launches`
+#: launches per kernel since the last :func:`reset_launches`;
+#: ``lane_scan_head`` counts the K2 launches that carry a neighbour's head
+#: (also counted under ``lane_scan``), ``shard_body`` the per-rank bodies
+#: of the sharded scan (K8) that ran on a card
 LAUNCHES: dict[str, int] = {
-    "fire": 0, "lane_scan": 0, "compact": 0, "verify": 0,
-    "batch_scan": 0, "stride2_scan": 0, "sparse_scan": 0,
+    "fire": 0, "lane_scan": 0, "lane_scan_head": 0, "compact": 0,
+    "verify": 0, "batch_scan": 0, "stride2_scan": 0, "sparse_scan": 0,
+    "shard_body": 0,
 }
 #: compiler output per source (ptxas register and shared-memory report)
 BUILD_LOG: dict[str, str] = {}
@@ -53,7 +57,7 @@ _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    "ac_lane_scan": [_P, _I32, _P, _I32, _P, _I64, _P, _I32, _I32, _I32,
+    "ac_lane_scan": [_P, _I32, _P, _I32, _P, _I64, _P, _P, _I32, _I32, _I32,
                      _P, _P, _P],
     "ac_compact": [_P, _I64, _I32, _P, _P, _P, _P, _P],
     "ac_compact_chunk": [],
@@ -158,9 +162,10 @@ def _raise_on(err: int, kernel: str) -> None:
 def lane_scan(
     table: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
     match_count: torch.Tensor, n: int, L: int, T: int, halo: int,
-    use_classes: bool,
+    use_classes: bool, head: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2: states int32 [L*T] and match mask uint8 [L*T]."""
+    """K2: states int32 [L*T] and match mask uint8 [L*T]; ``head`` (int32
+    [halo], values 0-256) is read in place of PAD before position 0."""
     dev = hay.device
     if dev.type != "cuda":
         raise ValueError("lane_scan kernel needs CUDA tensors")
@@ -168,6 +173,10 @@ def lane_scan(
     _check("classes", classes, torch.int32, dev, 1)
     _check("hay", hay, torch.uint8, dev, 1)
     _check("match_count", match_count, torch.int32, dev, 1)
+    if head is not None:
+        _check("head", head, torch.int32, dev, 1)
+        if head.numel() != halo:
+            raise ValueError(f"lane_scan: head of {head.numel()}, not {halo}")
     if classes.numel() != 257 or hay.numel() != L * T or halo > T:
         raise ValueError("lane_scan: bad classes, layout or halo")
     if not 0 <= n <= L * T:
@@ -177,10 +186,13 @@ def lane_scan(
     lib = build()["scan"]
     _raise_on(lib.ac_lane_scan(
         table.data_ptr(), table.shape[1], classes.data_ptr(),
-        int(use_classes), hay.data_ptr(), n, match_count.data_ptr(),
+        int(use_classes), hay.data_ptr(), n,
+        None if head is None else head.data_ptr(), match_count.data_ptr(),
         L, T, halo, states.data_ptr(), mask.data_ptr(), _stream(dev),
     ), "lane_scan")
     LAUNCHES["lane_scan"] += 1
+    if head is not None:
+        LAUNCHES["lane_scan_head"] += 1
     return states, mask
 
 

@@ -17,11 +17,18 @@ Execution tiers (picked per call by haystack size, overridable with
                 matcher's torch device (``ops/scan_cuda.py``), or the
                 prefiltered Teddy pipeline (``ops/scan_teddy.py``) when it
                 pays; streams arbitrarily large haystacks.
+* ``sharded`` — the same scans with the haystack split across the ranks
+                of a ``torch.distributed`` group (``parallel/sharded.py``);
+                selected automatically when a ``mesh=`` is passed and the
+                haystack reaches the device tier, or forced with
+                ``backend="sharded"`` (without a mesh: the default process
+                group, or a world of one rank).
 
 The ``*_batch`` methods scan many documents in one device dispatch
 (``device_batch`` through ``scan_cuda.scan_device_batch``, or
-``teddy_batch`` through the Teddy pipeline over one staged buffer), or in
-one native call below the device tier (``native_batch``).
+``teddy_batch`` through the Teddy pipeline over one staged buffer; with a
+mesh ``sharded_batch`` and ``teddy_sharded_batch``), or in one native call
+below the device tier (``native_batch``).
 
 All tiers produce the identical complete occurrence set; match-kind
 semantics are resolved from it by ``ops.resolve`` (one shared semantics
@@ -41,6 +48,7 @@ if TYPE_CHECKING:
     from .models.native import DenseScanner
     from .ops.scan_cuda import DeviceTables
     from .ops.scan_teddy import TeddyScanner
+    from .parallel.sharded import MeshLike, ShardGroup
 
     if sys.version_info >= (3, 12):
         from collections.abc import Buffer
@@ -78,7 +86,9 @@ _BATCH_WASTE = 4
 _WASTE_MIN_BYTES = 1 << 20
 
 
-def _plan_batch_groups(lens: list[int]) -> list[list[int]]:
+def _plan_batch_groups(
+    lens: list[int], n_dev: int = 1
+) -> list[list[int]]:
     """Partition batch indexes into device-dispatch groups.
 
     Groups are built in descending length order, so each group's ``T`` is
@@ -90,10 +100,11 @@ def _plan_batch_groups(lens: list[int]) -> list[list[int]]:
     never stage tighter than the 16-byte floor, so tiny documents group
     together instead of fragmenting, and sub-MB groups never split at
     all).  Both the row count and T are budget-accounted power-of-two
-    aligned, matching what ``scan_device_batch`` actually stages.  A
-    uniform batch that fits the budget comes back as one group; singleton
-    groups are the caller's signal to use the streaming single-document
-    path.
+    aligned, matching what ``scan_device_batch`` actually stages; with
+    ``n_dev`` > 1 the row count is also rounded up to a multiple of the
+    rank count, as ``scan_sharded_batch`` pads it.  A uniform batch that
+    fits the budget comes back as one group; singleton groups are the
+    caller's signal to use the streaming single-document path.
     """
     order = sorted(range(len(lens)), key=lambda i: -lens[i])
     groups: list[list[int]] = []
@@ -104,8 +115,11 @@ def _plan_batch_groups(lens: list[int]) -> list[list[int]]:
         # the tightest (pow2, >=16) T this document could stage at
         tmin = 1 << (max(ln, 16) - 1).bit_length()
         # pow2 ceiling of the row count after adding this doc, floored
-        # at scan_device_batch's MIN_LANES=8 row padding
+        # at scan_device_batch's MIN_LANES=8 row padding; sharded batches
+        # further pad rows to a multiple of the rank count
         rows = 1 << max(len(cur), 7).bit_length()
+        if n_dev > 1 and rows % n_dev:
+            rows = -(-rows // n_dev) * n_dev
         staged = (len(cur) + 1) * curT
         if cur and (
             (tmin * _BATCH_WASTE < curT and staged >= _WASTE_MIN_BYTES)
@@ -155,14 +169,6 @@ def _resolve_device(
     return dev
 
 
-def _check_backend(backend: str) -> None:
-    if backend == "sharded":
-        raise NotImplementedError(
-            "backend='sharded' (the multi-GPU scan) is not part of this "
-            "package yet"
-        )
-
-
 class _MatcherBase:
     """Shared construction + scan/resolve pipeline for both matchers."""
 
@@ -173,6 +179,8 @@ class _MatcherBase:
     _backend: str
     _byte_patterns: list[bytes]
     _device_tables = None
+    #: the ranks of the sharded scan (``parallel.sharded.ShardGroup``)
+    _mesh: Optional["ShardGroup"] = None
     _teddy = None
     _teddy_state = "auto"  # "auto" | "off" | "force"
     _counters = None  # scan observability, created on first scan
@@ -268,6 +276,7 @@ class _MatcherBase:
         implementation: Optional[Implementation],
         backend: str,
         device: Union[str, torch.device, None],
+        mesh: "MeshLike",
     ) -> None:
         if not isinstance(matchkind, MatchKind):
             raise TypeError(
@@ -280,10 +289,13 @@ class _MatcherBase:
                 "implementation must be an Implementation or None, "
                 f"not {implementation!r}"
             )
-        _check_backend(backend)
         self._tier_bps = {}
         self._backend = backend
         self._device = _resolve_device(device)
+        if mesh is not None:
+            from .parallel import sharded as _sharded
+
+            self._mesh = _sharded.as_group(mesh)
         self._matchkind = matchkind
         self._byte_patterns = byte_patterns
         self._automaton = build_automaton(byte_patterns)
@@ -313,8 +325,21 @@ class _MatcherBase:
                 backend = "native" if self._native_ok() else (
                     "python" if n <= PY_TIER_MAX else "numpy"
                 )
+            elif self._mesh is not None:
+                backend = "sharded"
             else:
                 backend = "device"
+        if backend == "sharded":
+            if self._implementation is Implementation.NoncontiguousNFA:
+                # the sharded scan has no sparse body: the host tier
+                backend = "numpy" if not self._native_ok() else "native"
+            else:
+                from .parallel import sharded as _sharded
+
+                self._last_backend = "sharded"
+                return _sharded.scan_sharded(
+                    am, hay, self._get_device_tables(), self._shard_group()
+                )
         if (
             backend == "device"
             and self._backend == "auto"
@@ -436,7 +461,7 @@ class _MatcherBase:
         if self._teddy_state == "force":
             return True
         return (
-            self._backend in ("auto", "device")
+            self._backend in ("auto", "device", "sharded")
             and n >= DEVICE_TIER_MIN
             and (
                 self._backend != "auto"
@@ -450,13 +475,21 @@ class _MatcherBase:
     ) -> Optional[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """Return the complete occurrence set via the prefiltered scan, or
         None when the prefilter is off/unprofitable for this matcher.
-        Sets ``last_backend``."""
+        Sets ``last_backend``; runs sharded when the matcher has a mesh."""
         if not self._teddy_wanted(len(hay), hay):
             return None
         if self._get_teddy() is None:
             return None
-        occ = self._teddy.occurrences_streamed(hay)
-        self._last_backend = "teddy"
+        if self._mesh is not None or self._backend == "sharded":
+            from .parallel import sharded as _sharded
+
+            occ = _sharded.scan_sharded_teddy(
+                self._automaton, self._teddy, hay, self._shard_group()
+            )
+            self._last_backend = "teddy_sharded"
+        else:
+            occ = self._teddy.occurrences_streamed(hay)
+            self._last_backend = "teddy"
         if occ is None:
             # observed fire rate too high on this corpus — stop trying
             self._teddy_state = "off"
@@ -499,7 +532,25 @@ class _MatcherBase:
             )
         return self._device_tables
 
+    def _shard_group(self) -> "ShardGroup":
+        """The matcher's ranks: its ``mesh=``, else (made once) the
+        default process group or a world of one rank."""
+        if self._mesh is None:
+            from .parallel import sharded as _sharded
+
+            self._mesh = _sharded.make_mesh()
+        return self._mesh
+
     # -- batched many-small-haystack path ------------------------------
+    def _mesh_wanted(self) -> bool:
+        """Route device-tier batches through the ranks?  As for one
+        document: an explicit ``backend="sharded"`` always shards; ``auto``
+        shards when the matcher was given a mesh; ``backend="device"``
+        stays on one device."""
+        return self._backend == "sharded" or (
+            self._backend == "auto" and self._mesh is not None
+        )
+
     def _batch_occurrences(
         self, docs: list[np.ndarray]
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -542,22 +593,42 @@ class _MatcherBase:
                 buf[i * T : i * T + len(d)] = d
                 lens[i] = len(d)
             # the staged flat buffer IS a haystack: padding can only
-            # over-fire, never match (matches are filtered below)
-            occ = self._teddy.occurrences_streamed(buf)
+            # over-fire, never match (matches are filtered below); with a
+            # mesh it shards across the ranks like any other haystack
+            if self._mesh_wanted():
+                from .parallel import sharded as _sharded
+
+                occ = _sharded.scan_sharded_teddy(
+                    am, self._teddy, buf, self._shard_group()
+                )
+                batch_backend = "teddy_sharded_batch"
+            else:
+                occ = self._teddy.occurrences_streamed(buf)
+                batch_backend = "teddy_batch"
             if occ is None:
                 self._teddy_state = "off"
         if occ is not None:
-            self._last_backend = "teddy_batch"
+            self._last_backend = batch_backend
             pids, starts, ends = occ
             lane = starts // T
             keep = (lane < B) & (ends <= lane * T + lens[lane])
             pids, starts, ends = pids[keep], starts[keep], ends[keep]
         else:
-            # dense batch path (K5): T is a power of two there
-            pos, st, T = scan_cuda.scan_device_batch(
-                am, docs, self._get_device_tables()
-            )
-            self._last_backend = "device_batch"
+            # dense batch path (K5): T is a power of two there; with a
+            # mesh the document rows shard across the ranks (no halo:
+            # every document starts at the root)
+            if self._mesh_wanted():
+                from .parallel import sharded as _sharded
+
+                pos, st, T = _sharded.scan_sharded_batch(
+                    am, docs, self._get_device_tables(), self._shard_group()
+                )
+                self._last_backend = "sharded_batch"
+            else:
+                pos, st, T = scan_cuda.scan_device_batch(
+                    am, docs, self._get_device_tables()
+                )
+                self._last_backend = "device_batch"
             self._check_batch_density(st)
             pids, starts, ends = _resolve.expand_occurrences(am, pos, st)
         offsets = np.arange(B + 1, dtype=np.int64) * T
@@ -624,7 +695,7 @@ class _MatcherBase:
                 )
             )
         else:
-            use_device = backend == "device"
+            use_device = backend in ("device", "sharded")
         use_device = use_device and (
             self._implementation is not Implementation.NoncontiguousNFA
         )
@@ -658,7 +729,8 @@ class _MatcherBase:
     ) -> list[list[tuple[int, int, int]]]:
         kind = self._matchkind.value
         if use_device:
-            groups = _plan_batch_groups([len(d) for d in docs])
+            n_dev = self._shard_group().size if self._mesh_wanted() else 1
+            groups = _plan_batch_groups([len(d) for d in docs], n_dev=n_dev)
             if len(groups) > 1 or (groups and len(groups[0]) == 1):
                 # also taken for a single singleton group: ONE document
                 # must stream (the batch kernel would stage MIN_LANES x
@@ -736,9 +808,10 @@ class _MatcherBase:
 
         Mirrors ``_scan``'s routing for the host-bound cases: explicit
         host backends, auto scans the throughput router keeps on the
-        host, and the sparse engine's auto host fallback.  The device tier
-        returns None — it segments on the device and its compacted
-        outputs are match-sized, not occurrence-sized.
+        host, and the sparse engine's auto and sharded host fallbacks.
+        The device and sharded tiers return None — they segment on the
+        device and their compacted outputs are match-sized, not
+        occurrence-sized.
         """
         if len(hay) < self._STREAM_MIN:
             return None
@@ -751,6 +824,8 @@ class _MatcherBase:
             if not self._auto_device_ok(len(hay), hay):
                 return host
             return host if sparse else None
+        if b == "sharded" and sparse:
+            return host  # _scan's sharded/sparse fallback
         return None
 
     def _find_streaming(
@@ -1014,7 +1089,9 @@ class AhoCorasick(_MatcherBase):
 
     Extras (keyword-only): ``backend=`` forces an execution tier;
     ``device=`` names the torch device of the device tier (default
-    ``"cuda"``; without a card the caller must pass ``"cpu"``).
+    ``"cuda"``; without a card the caller must pass ``"cpu"``); ``mesh=``
+    (a 1-D ``torch.distributed`` ``DeviceMesh`` or a ``ProcessGroup``)
+    routes device-tier scans through the sharded scan across its ranks.
     """
 
     def __init__(
@@ -1026,6 +1103,7 @@ class AhoCorasick(_MatcherBase):
         *,
         backend: str = "auto",
         device: Union[str, torch.device, None] = None,
+        mesh: "MeshLike" = None,
     ) -> None:
         byte_patterns: list[bytes] = []
         originals: list[str] = []
@@ -1050,7 +1128,9 @@ class AhoCorasick(_MatcherBase):
         self._patterns: Optional[list[str]] = (
             originals if store_patterns else None
         )
-        self._build(byte_patterns, matchkind, implementation, backend, device)
+        self._build(
+            byte_patterns, matchkind, implementation, backend, device, mesh
+        )
 
     def find_matches_as_indexes(
         self, haystack: str, overlapping: bool = False
@@ -1159,7 +1239,8 @@ class BytesAhoCorasick(_MatcherBase):
 
     Matches the reference class (upstream src/lib.rs:360-434): patterns
     and haystacks are buffer-protocol objects, returned indexes are raw
-    byte offsets, and there is no ``find_matches_as_strings``.
+    byte offsets, and there is no ``find_matches_as_strings``.  The extras
+    are :class:`AhoCorasick`'s.
     """
 
     def __init__(
@@ -1170,6 +1251,7 @@ class BytesAhoCorasick(_MatcherBase):
         *,
         backend: str = "auto",
         device: Union[str, torch.device, None] = None,
+        mesh: "MeshLike" = None,
     ) -> None:
         byte_patterns: list[bytes] = []
         for p in patterns:
@@ -1177,7 +1259,9 @@ class BytesAhoCorasick(_MatcherBase):
             if not bp:
                 raise ValueError("You passed in an empty pattern")
             byte_patterns.append(bp)
-        self._build(byte_patterns, matchkind, implementation, backend, device)
+        self._build(
+            byte_patterns, matchkind, implementation, backend, device, mesh
+        )
 
     def find_matches_as_indexes(
         self, haystack: "Buffer", overlapping: bool = False

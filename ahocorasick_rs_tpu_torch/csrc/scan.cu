@@ -19,6 +19,12 @@
 //   neighbouring threads, so each warp access touches 32 cache lines.
 //   This is known to be slow and is left for a later change (a transposed
 //   [T, L] layout or a shared-memory staged tile).
+//   Head: a shard of the sharded scan (parallel/sharded.py, replacing the
+//   `ppermute` halo of ahocorasick_rs_tpu/parallel/sharded.py
+//   `_shard_scan_fn`) passes the `halo` int32 bytes that precede it,
+//   received from its left neighbour, with PAD (256) for positions past
+//   the haystack's end.  Lane 0 reads `head[halo + p]` for `p < 0`; a null
+//   `head` reads PAD there, as before.
 //
 // K3 ac_compact replaces ahocorasick_rs_tpu/ops/scan_jax.py
 // `compact_sparse`.
@@ -47,6 +53,7 @@ __global__ void lane_scan_kernel(const int32_t* __restrict__ table,
                                  const int32_t* __restrict__ classes,
                                  int32_t use_classes,
                                  const uint8_t* __restrict__ hay, int64_t n,
+                                 const int32_t* __restrict__ head,
                                  const int32_t* __restrict__ match_count,
                                  int32_t L, int32_t T, int32_t halo,
                                  int32_t* __restrict__ states,
@@ -57,7 +64,11 @@ __global__ void lane_scan_kernel(const int32_t* __restrict__ table,
   int32_t s = 0;
   for (int32_t j = -halo; j < T; ++j) {
     const int64_t p = base + j;
-    int32_t b = (p >= 0 && p < n) ? static_cast<int32_t>(hay[p]) : kPad;
+    int32_t b;
+    if (p < 0)
+      b = head ? __ldg(head + halo + p) : kPad;
+    else
+      b = p < n ? static_cast<int32_t>(hay[p]) : kPad;
     if (use_classes) b = __ldg(classes + b);
     s = __ldg(table + static_cast<int64_t>(s) * ncols + b);
     if (j >= 0) {
@@ -180,10 +191,12 @@ __global__ void scatter_kernel(const uint8_t* __restrict__ mask, int64_t N,
 
 extern "C" {
 
+// `head` is null or holds `halo` int32 values in [0, 256].
 int ac_lane_scan(const void* table, int32_t ncols, const void* classes,
                  int32_t use_classes, const void* hay, int64_t n,
-                 const void* match_count, int32_t L, int32_t T, int32_t halo,
-                 void* states, void* mask, void* stream) {
+                 const void* head, const void* match_count, int32_t L,
+                 int32_t T, int32_t halo, void* states, void* mask,
+                 void* stream) {
   const int threads = 128;
   const int blocks = (L + threads - 1) / threads;
   if (blocks > 0)
@@ -191,6 +204,7 @@ int ac_lane_scan(const void* table, int32_t ncols, const void* classes,
       static_cast<const int32_t*>(table), ncols,
       static_cast<const int32_t*>(classes), use_classes,
       static_cast<const uint8_t*>(hay), n,
+      static_cast<const int32_t*>(head),
       static_cast<const int32_t*>(match_count), L, T, halo,
       static_cast<int32_t*>(states), static_cast<uint8_t*>(mask));
   return static_cast<int>(cudaGetLastError());

@@ -28,6 +28,7 @@ tensors it launches the kernel.
 from __future__ import annotations
 
 from functools import partial
+from typing import Optional
 
 import numpy as np
 import torch
@@ -67,20 +68,21 @@ def to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def build_lanes(
-    flat: torch.Tensor, L: int, T: int, halo: int, n: int
+    flat: torch.Tensor, L: int, T: int, halo: int, n: int,
+    head: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Halo'd lanes ``[L, halo + T]`` (int64) from a flat byte stream.
 
     ``flat`` has length ``L*T``; positions >= ``n`` are forced to
-    ``PAD_BYTE`` (whose transition column is all-root).  Requires
-    ``halo <= T``.
+    ``PAD_BYTE`` (whose transition column is all-root).  The ``halo``
+    values before position 0 are ``head`` (a shard's left context, values
+    0-256) or PAD.  Requires ``halo <= T``.
     """
     idx = torch.arange(L * T, device=flat.device)
     flat = torch.where(idx < n, flat.long(), PAD_BYTE)
-    pf = torch.cat(
-        [torch.full((halo,), PAD_BYTE, dtype=torch.long, device=flat.device),
-         flat]
-    )
+    if head is None:
+        head = torch.full((halo,), PAD_BYTE, device=flat.device)
+    pf = torch.cat([head.long(), flat])
     halos = pf[: L * T].view(L, T)[:, :halo]
     return torch.cat([halos, flat.view(L, T)], dim=1)
 
@@ -88,10 +90,10 @@ def build_lanes(
 def _lane_scan_plain(
     table: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
     match_count: torch.Tensor, n: int, L: int, T: int, halo: int,
-    use_classes: bool,
+    use_classes: bool, head: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2: one vectorised step per time column."""
-    ext = build_lanes(hay, L, T, halo, n)
+    ext = build_lanes(hay, L, T, halo, n, head)
     if use_classes:
         ext = classes.long()[ext]
     ncols = table.shape[1]
@@ -111,16 +113,18 @@ def _lane_scan_plain(
 def scan_lanes(
     table: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
     match_count: torch.Tensor, n: int, L: int, T: int, halo: int,
-    use_classes: bool,
+    use_classes: bool, head: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2: (states int32 [L*T], match mask uint8 [L*T]) for a uint8
-    haystack of ``L*T`` bytes of which the first ``n`` are real."""
+    haystack of ``L*T`` bytes of which the first ``n`` are real, preceded
+    by ``head`` (int32 [halo]) or by PAD."""
     if hay.device.type == "cpu":
         return _lane_scan_plain(
-            table, classes, hay, match_count, n, L, T, halo, use_classes
+            table, classes, hay, match_count, n, L, T, halo, use_classes,
+            head,
         )
     return _kernels.lane_scan(
-        table, classes, hay, match_count, n, L, T, halo, use_classes
+        table, classes, hay, match_count, n, L, T, halo, use_classes, head
     )
 
 
@@ -174,11 +178,13 @@ def _scan_compact(
     halo: int,
     cap: int,
     use_classes: bool,
+    head: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """uint8 haystack [L*T] → compacted (positions[cap], states[cap], total)."""
     return _compact_states(
         *scan_lanes(
-            table, classes, hay, match_count, n, L, T, halo, use_classes
+            table, classes, hay, match_count, n, L, T, halo, use_classes,
+            head,
         ),
         cap,
     )

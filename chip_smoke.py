@@ -17,7 +17,11 @@ budget), the sparse engine and the match-dense bailout;
 ``find_matches_as_indexes_batch`` on the LONG batch (20,000 documents of
 624-633 bytes) through the Teddy pipeline and the batch kernel, and on the
 SHORT batch (10,000 documents of 72-75 bytes).  It also checks the
-streamed Teddy pipeline.
+streamed Teddy pipeline.  The sharded scan (K8) runs last: its per-rank
+bodies are held against the same bodies on the CPU, then two gloo ranks
+sharing the card and one NCCL rank (child processes of this script) make
+the sharded Teddy, dense and batch calls through the public API with
+``mesh=``, and every rank's tuples must equal the single-device port's.
 
 Output: progress lines, the card's name and power limit as ``nvidia-smi``
 reports them, one ``{"kernels": [...]}`` JSON line, and as the last line
@@ -48,6 +52,10 @@ PATTERNS = 1000
 PATTERNS_K2 = 10_000
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes per second
 HBM_BYTES_PER_S = 3.35e12
+#: ranks of the sharded phase's gloo run (they share the one card)
+SHARD_RANKS = 2
+#: seconds a spawned sharded run may take before it fails
+SHARD_TIMEOUT_S = 400
 
 
 def synth_names(count: int, rng: np.random.Generator) -> list[bytes]:
@@ -168,6 +176,13 @@ def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def tables_bytes(t) -> int:
+    """Bytes of a ``DeviceTables``' transition table, byte classes and
+    match counts."""
+    return sum(x.numel() * x.element_size()
+               for x in (t.table, t.classes, t.match_count))
+
+
 def phase_kernels(dev, names, corpus, long_batch) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     from ahocorasick_rs_tpu_torch import _kernels
@@ -266,6 +281,19 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
     st_p, lm_p = scan_cuda._lane_scan_plain(*k2_args)
     err = max(max_abs_err(st, st_p), max_abs_err(lm, lm_p))
     require(err == 0, f"K2 lane scan differs from its plain version ({err})")
+    # K2 with a neighbour's head (the sharded scan): an all-PAD head is
+    # bit-equal to none, and the corpus's last bytes as a head equal the
+    # plain version
+    pad = torch.full((halo,), 256, dtype=torch.int32, device=dev)
+    for a, b in zip(_kernels.lane_scan(*k2_args, head=pad), (st, lm)):
+        require(torch.equal(a, b), "K2 with a PAD head differs from K2")
+    head = torch.from_numpy(corpus[-halo:].astype(np.int32)).to(dev)
+    got = _kernels.lane_scan(*k2_args, head=head)
+    want = scan_cuda._lane_scan_plain(*k2_args, head=head)
+    head_err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    require(head_err == 0, f"K2 with a head differs from its plain version "
+                           f"({head_err})")
+    err = max(err, head_err)
     one_lane = (cls.table, cls.classes, hay[:T].contiguous(),
                 cls.match_count, T, 1, T, halo, cls.use_classes)
     out["lane_scan"] = {
@@ -411,6 +439,146 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
     return out
 
 
+def phase_shard_kernels(dev, names, corpus, long_batch) -> dict:
+    """K8: the sharded scan's per-rank bodies at the sharded phase's
+    shapes (two ranks over the 64 MiB corpus and the LONG batch), each on
+    the card against the same body on CPU copies of its inputs, which is
+    its plain version (every wrapper takes its plain version for CPU
+    tensors).  The plain time is a host-clock time on the CPU."""
+    from ahocorasick_rs_tpu_torch.models.automaton import build_automaton
+    from ahocorasick_rs_tpu_torch.models.prefilter import build_prefilter
+    from ahocorasick_rs_tpu_torch.ops import scan_cuda, scan_teddy
+    from ahocorasick_rs_tpu_torch.parallel import sharded
+
+    am = build_automaton(names)
+    pf = build_prefilter(names)
+    n, n_dev, halo = len(corpus), SHARD_RANKS, am.max_len - 1
+    cpu = torch.device("cpu")
+    devs = (dev, cpu)
+
+    def run_both(body, args) -> tuple[int, float, float]:
+        """max |card - cpu| of ``body`` over its outputs, the card's ms
+        and the CPU's ms; ``args`` maps a device to the arguments."""
+        on_card, on_cpu = args(dev), args(cpu)
+        got = body(*on_card)
+        t0 = time.perf_counter()
+        want = body(*on_cpu)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(max_abs_err(a.cpu(), b) for a, b in zip(got, want))
+        return err, cuda_ms(lambda: body(*on_card), 5), plain_ms
+
+    out: dict = {}
+    # dense (the sharded ContiguousNFA path): rank 1, whose head is rank
+    # 0's tail
+    cls = {d: scan_cuda.DeviceTables(am, "classed", d) for d in devs}
+    L, T = sharded.dense_layout(n, n_dev, halo)
+    LT = L * T
+    shards = [torch.from_numpy(sharded._shard_of(corpus, d, LT))
+              for d in range(n_dev)]
+    tail = sharded.shard_tail(shards[0], n, halo)
+    cap = 4096
+    err, ms, plain_ms = run_both(
+        sharded.shard_scan_body, lambda d: (
+            cls[d], shards[1].to(d), tail.to(d), n - LT, LT, L, T, halo, cap,
+        ),
+    )
+    out["dense"] = {
+        "shape": f"rank 1 of {n_dev}: L={L} T={T} halo={halo}, table int32 "
+                 f"{list(cls[dev].table.shape)}, cap={cap}",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        # the body's own inputs and outputs only (K2's state stream and
+        # mask are intermediates): shard, head, tables read; the compacted
+        # positions, states and total written; the tails and the outputs
+        # the two collectives gather
+        "bound_ms": bound_ms(LT + 4 * halo + tables_bytes(cls[dev])
+                             + 12 * cap + 4
+                             + n_dev * (4 * halo + 8 * (2 * cap + 1))),
+    }
+    # Teddy (the sharded DFA LeftmostLongest path): rank 0, whose right
+    # neighbour's head is rank 1's first Hr bytes
+    dfa = {d: scan_cuda.DeviceTables(am, "dfa", d) for d in devs}
+    sc = {
+        d: scan_teddy.TeddyScanner(
+            am, pf, t.table, t.classes, t.match_count, t.use_classes
+        )
+        for d, t in dfa.items()
+    }
+    W = am.max_len + scan_teddy.COARSE - 1
+    rows, Hr = sharded.teddy_layout(n, n_dev, W)
+    LT = rows * 128
+    shards = [torch.from_numpy(sharded._shard_of(corpus, d, LT))
+              for d in range(n_dev)]
+    right = shards[1][:Hr].clone()
+    fcap, mcap = 1 << 14, 1 << 12
+    while True:  # scan_sharded_teddy's cap growth, on the card
+        o = sharded.shard_teddy_body(
+            sc[dev], shards[0].to(dev), right.to(dev), n, 0, W, fcap, mcap
+        )
+        ftotal, mtotal = int(o[1]), int(o[5])
+        if ftotal > fcap:
+            fcap = scan_teddy._bucket(ftotal)
+        elif mtotal > mcap:
+            mcap = scan_teddy._bucket(mtotal)
+        else:
+            break
+    err, ms, plain_ms = run_both(
+        sharded.shard_teddy_body, lambda d: (
+            sc[d], shards[0].to(d), right.to(d), n, 0, W, fcap, mcap,
+        ),
+    )
+    out["teddy"] = {
+        "shape": f"rank 0 of {n_dev}: hay uint8 [{rows}, 128], Hr={Hr}, "
+                 f"W={W}, {ftotal} windows (cap {fcap}), {mtotal} matched "
+                 f"steps (cap {mcap})",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        # the body's own inputs and outputs only (the fire mask is an
+        # intermediate, the windows read the shard): shard, right head,
+        # fire and verify tables read; window starts, ftotal, the matched
+        # steps and mtotal written; the heads and the outputs gathered
+        "bound_ms": bound_ms(LT + Hr + 4 * (sc[dev].tables.numel()
+                                            + sc[dev].vtable.numel()
+                                            + sc[dev].classes.numel())
+                             + 8 * fcap + 12 * mcap + 8
+                             + n_dev * (Hr + 8 * (fcap + 3 * mcap + 2))),
+    }
+    # batch (the sharded LONG batch): rank 0's row block
+    Bb, T = sharded.batch_layout([len(d) for d in long_batch], n_dev)
+    Bl = Bb // n_dev
+    buf = np.zeros((Bl, T), dtype=np.uint8)
+    lens = np.zeros(Bl, dtype=np.int32)
+    for r, d in enumerate(long_batch[:Bl]):
+        b = d.encode()
+        buf[r, : len(b)] = np.frombuffer(b, dtype=np.uint8)
+        lens[r] = len(b)
+    hay2d, lens_t = torch.from_numpy(buf), torch.from_numpy(lens)
+    err, ms, plain_ms = run_both(
+        sharded.shard_batch_body, lambda d: (
+            dfa[d], hay2d.to(d), lens_t.to(d), 0, cap,
+        ),
+    )
+    out["batch"] = {
+        "shape": f"rank 0 of {n_dev}: hay2d uint8 [{Bl}, {T}], DFA table "
+                 f"int32 {list(dfa[dev].table.shape)}, cap={cap}",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        # rows, lens and tables read; the compacted outputs written and
+        # gathered (K5's states and mask are intermediates)
+        "bound_ms": bound_ms(Bl * T + 4 * Bl + tables_bytes(dfa[dev])
+                             + 12 * cap + 4 + n_dev * 8 * (2 * cap + 1)),
+    }
+    for key, row in out.items():
+        require(row["max_abs_err"] == 0,
+                f"K8 {key} body on the card differs from the CPU "
+                f"({row['max_abs_err']})")
+    dense = out["dense"]
+    return {
+        "shape": dense["shape"],
+        "max_abs_err": max(r["max_abs_err"] for r in out.values()),
+        "ms": dense["ms"], "plain_ms": dense["plain_ms"],
+        "bound_ms": dense["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "by_body": out,
+    }
+
+
 def host_backend() -> str:
     from ahocorasick_rs_tpu_torch.models import native
 
@@ -457,6 +625,7 @@ def phase_teddy(port, names_s, text) -> dict:
     return {
         "launches": launches, "matches": len(got), "host_tier": host,
         "auto_call_s": auto_s, "device_call_s": times, "scanner": ac._teddy,
+        "digest": digest(want),
     }
 
 
@@ -589,7 +758,8 @@ def phase_batch(port, patterns, docs, teddy_state, tier, kernel) -> dict:
         require(got == want, f"{tier} {kind_name} differs from the "
                              f"{host} per-document loop")
         out[kind_name] = {"matches": sum(map(len, got)),
-                          "device_call_s": times}
+                          "device_call_s": times,
+                          "digest": digest(flat_batch(want))}
     out["matches"] = out["Standard"]["matches"]
     out["device_call_s"] = (
         out["Standard"]["device_call_s"]
@@ -634,6 +804,201 @@ def phase_bailout(port) -> dict:
     return {"rerouted_to": tier, "matches": len(got), "launches": launches}
 
 
+def digest(matches: list) -> str:
+    """The sharded runner's digest of a tuple list, so that the ranks'
+    records and the single-device answers compare as one format."""
+    from ahocorasick_rs_tpu_torch.parallel.multihost import _match_digest
+
+    return _match_digest(matches)
+
+
+def flat_batch(per_doc: list) -> list:
+    return [(i, *t) for i, doc in enumerate(per_doc) for t in doc]
+
+
+#: the sharded calls each rank makes: result tier, matcher keywords, Teddy
+#: state, and the call (single document or the LONG batch)
+SHARD_CALLS = (
+    ("teddy_sharded", {"matchkind": "LeftmostLongest",
+                       "implementation": "DFA"}, None, "text"),
+    ("sharded", {"implementation": "ContiguousNFA"}, "off", "text_overlap"),
+    ("teddy_sharded_batch", {}, None, "batch"),
+    ("sharded_batch", {}, "off", "batch"),
+)
+#: the kernels each sharded call must launch (besides the K8 bodies)
+SHARD_KERNELS = {
+    "teddy_sharded": ("fire", "compact", "verify"),
+    "sharded": ("lane_scan", "lane_scan_head", "compact"),
+    "teddy_sharded_batch": ("fire", "compact", "verify"),
+    "sharded_batch": ("batch_scan", "compact"),
+}
+
+
+def shard_child(argv: list[str]) -> int:
+    """One rank of the sharded phase (started by :func:`phase_sharded`):
+    join the group on ``cuda:0`` and make each of :data:`SHARD_CALLS`
+    three times through the public API with ``mesh=`` (the first builds
+    the tables); write digests, tiers, launches and times to ``--out``."""
+    import argparse
+
+    import torch.distributed as dist
+
+    p = argparse.ArgumentParser()
+    for name in ("--rank", "--world"):
+        p.add_argument(name, type=int, required=True)
+    for name in ("--backend", "--init", "--out"):
+        p.add_argument(name, required=True)
+    a = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import ahocorasick_rs_tpu_torch as port
+    from ahocorasick_rs_tpu_torch import _kernels
+    from ahocorasick_rs_tpu_torch.parallel.multihost import (
+        global_mesh,
+        init_distributed,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_distributed(a.init, a.world, a.rank, a.backend)
+    try:
+        # NCCL: a 1-D DeviceMesh; gloo: the process group itself
+        mesh = global_mesh("cuda" if a.backend == "nccl" else None)
+        rng = np.random.default_rng(SEED)
+        names = synth_names(PATTERNS, rng)
+        text = synth_corpus(CORPUS_MIB << 20, names, rng).tobytes().decode()
+        names_s = [x.decode() for x in names]
+        long_batch = long_docs(names)
+        runs = {
+            "text": lambda ac: ac.find_matches_as_indexes(text),
+            "text_overlap": lambda ac: ac.find_matches_as_indexes(
+                text, overlapping=True),
+            "batch": lambda ac: flat_batch(
+                ac.find_matches_as_indexes_batch(long_batch)),
+        }
+        record: dict = {"rank": dist.get_rank(), "world": a.world,
+                        "backend": dist.get_backend(), "mesh":
+                        type(mesh).__name__, "calls": {}}
+        for tier, kw, teddy_state, run in SHARD_CALLS:
+            kw = dict(kw)
+            if "matchkind" in kw:
+                kw["matchkind"] = port.MatchKind[kw["matchkind"]]
+            if "implementation" in kw:
+                kw["implementation"] = port.Implementation[
+                    kw["implementation"]]
+            _kernels.reset_launches()
+            ac = port.AhoCorasick(
+                names_s, backend="sharded", mesh=mesh, device=dev, **kw
+            )
+            if teddy_state is not None:
+                ac._teddy_state = teddy_state
+            times = []
+            for _ in range(3):
+                dist.barrier()
+                t0 = time.perf_counter()
+                got = runs[run](ac)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            record["calls"][tier] = {
+                "tier": ac.stats()["last_backend"], "matches": len(got),
+                "digest": digest(got), "launches": dict(_kernels.LAUNCHES),
+                "call_s": times,
+            }
+        with open(a.out, "w") as f:
+            json.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(world: int, backend: str) -> list[dict]:
+    """Run ``world`` ranks of :func:`shard_child` on ``cuda:0`` over
+    ``backend`` and return their records; any failure fails the phase,
+    and every child is stopped before this returns."""
+    out_dir = os.path.join(HERE, "chiprun_out", "shard")
+    os.makedirs(out_dir, exist_ok=True)
+    tag = f"{backend}{world}"
+    rdv = os.path.join(out_dir, f"rendezvous_{tag}")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    procs = []
+    try:
+        for r in range(world):
+            out = os.path.join(out_dir, f"{tag}_rank{r}.json")
+            log_path = os.path.join(out_dir, f"{tag}_rank{r}.log")
+            with open(log_path, "w") as log_f:
+                procs.append((subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--shard-child", "--rank", str(r), "--world",
+                     str(world), "--backend", backend, "--init",
+                     f"file://{rdv}", "--out", out],
+                    cwd=HERE, stdout=log_f, stderr=subprocess.STDOUT,
+                ), out, log_path))
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        # a rank that fails leaves its peers waiting in a collective: stop
+        # waiting at the first failure
+        while any(p.poll() is None for p, _, _ in procs):
+            if any(p.returncode not in (None, 0) for p, _, _ in procs):
+                break
+            if time.monotonic() > deadline:
+                raise SmokeFailure(f"{tag} ranks still running at the "
+                                   "deadline")
+            time.sleep(0.2)
+        bad = [(r, p.returncode, lp) for r, (p, _, lp) in enumerate(procs)
+               if p.returncode not in (None, 0)]
+        if bad:
+            with open(bad[0][2]) as f:
+                tail = f.read()[-3000:]
+            raise SmokeFailure(
+                f"{tag} ranks {[(r, rc) for r, rc, _ in bad]} failed; "
+                f"rank {bad[0][0]}:\n{tail}"
+            )
+        records = []
+        for _, out, _ in procs:
+            with open(out) as f:
+                records.append(json.load(f))
+        return records
+    finally:
+        for p, _, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase_sharded(want: dict[str, str]) -> dict:
+    """The sharded paths (K8): two gloo ranks sharing the card, then one
+    NCCL rank, each making :data:`SHARD_CALLS` through the public API with
+    ``mesh=``; every rank's tuples must equal the single-device port's
+    (``want``: digests of tuples already held against the host tier)."""
+    paths = {}
+    for world, backend in ((SHARD_RANKS, "gloo"), (1, "nccl")):
+        records = spawn_ranks(world, backend)
+        for tier, _, _, _ in SHARD_CALLS:
+            calls = [r["calls"][tier] for r in records]
+            for r, c in zip(records, calls):
+                require(c["tier"] == tier,
+                        f"{backend} rank {r['rank']} ran {c['tier']!r}, not "
+                        f"{tier}")
+                require(c["digest"] == want[tier],
+                        f"{backend} rank {r['rank']} {tier} differs from the "
+                        "single-device port and the host tier")
+            launches = {k: sum(c["launches"][k] for c in calls)
+                        for k in calls[0]["launches"]}
+            for k in ("shard_body",) + SHARD_KERNELS[tier]:
+                require(launches[k] > 0, f"{backend} {tier} launched no {k}")
+            if tier == "sharded":
+                require(launches["stride2_scan"] == 0, "sharded ran K6")
+            paths[f"{tier}_{backend}{world}"] = {
+                "launches": launches, "matches": calls[0]["matches"],
+                "device_call_s": [t for c in calls for t in c["call_s"]],
+                "ranks": world, "backend": records[0]["backend"],
+                "mesh": records[0]["mesh"],
+            }
+    return paths
+
+
 KERNELS = {
     "fire": ("K1 fire", "ahocorasick_rs_tpu_torch/csrc/teddy.cu",
              "ahocorasick_rs_tpu/ops/scan_teddy.py:187"),
@@ -651,10 +1016,15 @@ KERNELS = {
     "sparse_scan": ("K7 sparse_scan",
                     "ahocorasick_rs_tpu_torch/csrc/sparse.cu",
                     "ahocorasick_rs_tpu/ops/scan_jax.py:339"),
+    "shard_body": ("K8 shard bodies (composite)",
+                   "ahocorasick_rs_tpu_torch/parallel/sharded.py",
+                   "ahocorasick_rs_tpu/parallel/sharded.py:95"),
 }
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--shard-child"]:
+        return shard_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -696,6 +1066,13 @@ def main() -> int:
     report["kernels"] = phase_kernels(dev, names, corpus, long_batch)
     log(f"kernels: equal to their plain versions "
         f"({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    k8 = report["kernels"]["shard_body"] = phase_shard_kernels(
+        dev, names, corpus, long_batch
+    )
+    log("K8 bodies: equal to the CPU; card ms " + ", ".join(
+        f"{k} {r['ms']:.4f}" for k, r in k8["by_body"].items()
+    ) + f" ({time.perf_counter() - t:.1f} s)")
 
     def path(label: str, fn, *args) -> dict:
         t = time.perf_counter()
@@ -731,6 +1108,21 @@ def main() -> int:
             "SHORT batch, device_batch", phase_batch, port, short_patterns,
             short_batch, None, "device_batch", "batch_scan"),
     }
+    t = time.perf_counter()
+    sharded = phase_sharded({
+        "teddy_sharded": teddy["digest"],
+        "sharded": digest(dense_want),
+        "teddy_sharded_batch": paths["batch_long_dense"]["Standard"]["digest"],
+        "sharded_batch": paths["batch_long_dense"]["Standard"]["digest"],
+    })
+    for key, res in sharded.items():
+        log(f"{key}: {res['ranks']} {res['backend']} rank(s) on cuda:0 "
+            f"({res['mesh']}), {res['matches']} matches, calls "
+            f"{[round(x * 1e3, 1) for x in res['device_call_s']]} ms, "
+            f"launches {res['launches']}")
+    log(f"sharded phase: every rank equal to the single-device port "
+        f"({time.perf_counter() - t:.1f} s)")
+    paths.update(sharded)
     report["paths"] = paths
 
     rows = []
@@ -749,6 +1141,23 @@ def main() -> int:
         })
         if "dep_chain_ms" in k:
             rows[-1]["dep_chain_ms"] = k["dep_chain_ms"]
+        if key == "lane_scan":
+            rows[-1]["launches_with_head"] = sum(
+                r["launches"]["lane_scan_head"] for r in paths.values())
+        if key == "shard_body":
+            rows[-1]["composite"] = (
+                "per-rank body dispatches, not one kernel: ms is one dense "
+                "body's card time (K2 with head + K3; by_body also has the "
+                "Teddy body, K1 + K3 + K4, and the batch body, K5 + K3); "
+                "launches count bodies run on a card; bound_ms counts the "
+                "body's inputs, its compacted outputs and its collectives"
+            )
+            rows[-1]["by_body"] = k["by_body"]
+            rows[-1]["replaces_bodies"] = [
+                "ahocorasick_rs_tpu/parallel/sharded.py:95",
+                "ahocorasick_rs_tpu/parallel/sharded.py:203",
+                "ahocorasick_rs_tpu/parallel/sharded.py:437",
+            ]
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

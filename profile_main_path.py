@@ -11,9 +11,10 @@ the matchers of the PyTorch port (the Teddy path: LeftmostLongest with the
 DFA engine; the dense path: ContiguousNFA, Standard, overlapping, Teddy
 off, which runs the stride-2 scan; the sparse engine, Standard,
 overlapping, with ``backend="device"``; the LONG batch through the Teddy
-pipeline and through the batch kernel; the SHORT batch), times three calls
-of each on the host clock, then traces one call of each with
-``torch.profiler``.  For each path it prints one JSON line: the wall time
+pipeline and through the batch kernel; the SHORT batch; and the same Teddy,
+dense and LONG batch calls with ``backend="sharded"`` in a world of one
+rank, with no process group), times three calls of each on the host clock,
+then traces one call of each with ``torch.profiler``.  For each path it prints one JSON line: the wall time
 of the calls, the host time of each ``ahocorasick:*`` span, the device
 time of each kernel and copy, the union of device activity and the
 device's idle share of the traced call.  The Chrome traces go to
@@ -157,6 +158,33 @@ def main() -> int:
     batches["batch_long_dense"][0]._teddy_state = "off"
     for ac, docs, _ in batches.values():
         ac.find_matches_as_indexes_batch(docs)  # tables, build, caps
+    # the sharded calls in a world of one rank: K8's bodies and exchange
+    # layer with no collective
+    sharded = {
+        "teddy_sharded": port.AhoCorasick(
+            names_s, matchkind=port.MatchKind.LeftmostLongest,
+            implementation=port.Implementation.DFA, backend="sharded",
+        ),
+        "sharded": port.AhoCorasick(
+            names_s, implementation=port.Implementation.ContiguousNFA,
+            backend="sharded",
+        ),
+        "teddy_sharded_batch": port.AhoCorasick(names_s, backend="sharded"),
+        "sharded_batch": port.AhoCorasick(names_s, backend="sharded"),
+    }
+    sharded["sharded"]._teddy_state = "off"
+    sharded["sharded_batch"]._teddy_state = "off"
+    ts, sd = sharded["teddy_sharded"], sharded["sharded"]
+    tb, sb = sharded["teddy_sharded_batch"], sharded["sharded_batch"]
+    sharded_calls = {
+        "teddy_sharded": lambda: ts.find_matches_as_indexes(text),
+        "sharded": lambda: sd.find_matches_as_indexes(text, overlapping=True),
+        "teddy_sharded_batch": lambda: tb.find_matches_as_indexes_batch(
+            long_batch),
+        "sharded_batch": lambda: sb.find_matches_as_indexes_batch(long_batch),
+    }
+    for call in sharded_calls.values():
+        call()  # tables, build, caps
     torch.cuda.synchronize()
     encode_ms = []
     for _ in range(3):
@@ -182,6 +210,10 @@ def main() -> int:
         ))
         if ac.stats()["last_backend"] != tier:
             raise SystemExit(f"{label} did not run {tier}")
+    for tier, call in sharded_calls.items():
+        rows.append(profile_path(tier, call))
+        if sharded[tier].stats()["last_backend"] != tier:
+            raise SystemExit(f"the {tier} matcher did not run {tier}")
     if teddy.stats()["last_backend"] != "teddy":
         raise SystemExit("the Teddy matcher did not run the Teddy path")
     for ac in (dense, sparse):

@@ -300,8 +300,16 @@ def test_device_must_be_asked_for_without_a_card(monkeypatch):
             port.AhoCorasick(["x"], **kw)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port.BytesAhoCorasick([b"x"], **kw)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        port.AhoCorasick(["x"], backend="sharded", device="cpu")
+    # the sharded scan with no process group: a world of one rank on the
+    # CPU, with the device tier's tuples
+    text = "x marks the spot, xx twice " * 40
+    sharded = port.AhoCorasick(["x", "spot"], backend="sharded", device="cpu")
+    device = port.AhoCorasick(["x", "spot"], backend="device", device="cpu")
+    got = sharded.find_matches_as_indexes(text)
+    assert got == device.find_matches_as_indexes(text) and len(got) == 160
+    assert sharded.stats()["last_backend"] == "sharded"
+    assert device.stats()["last_backend"] == "device"
+    assert sharded._mesh.size == 1
     # the sparse engine scans on the device tier (K7) when asked for it
     sparse = port.BytesAhoCorasick(
         [b"x"], implementation=port.Implementation.NoncontiguousNFA,

@@ -351,3 +351,143 @@ def test_api_batch_and_sparse_count_launches(cuda) -> None:
     )
     assert sparse.stats()["last_backend"] == "device"
     assert _kernels.LAUNCHES["sparse_scan"] > 0
+
+
+@pytest.mark.parametrize("engine", ["dfa", "classed"])
+@pytest.mark.parametrize("n", [1, 5000, 70_000])
+def test_lane_scan_head_equals_plain(cuda, engine: str, n: int) -> None:
+    """K2 with a neighbour's head: an all-PAD head is bit-equal to K2
+    without one, and a random head (bytes and PAD) equals the plain
+    version."""
+    from ahocorasick_rs_tpu_torch.models.automaton import PAD_BYTE
+
+    names = _names(71, 40) + [b"abcdefghabcdefgh"]
+    am = build_automaton(names)
+    halo = am.max_len - 1
+    L, T = scan_cuda.choose_layout(n, halo)
+    buf = np.zeros(L * T, dtype=np.uint8)
+    buf[:n] = np.frombuffer(_corpus(n, n + 16, names, n // 50), np.uint8)[:n]
+    tabs = scan_cuda.DeviceTables(am, engine, cuda)
+    hay = torch.from_numpy(buf).to(cuda)
+    args = (tabs.table, tabs.classes, hay, tabs.match_count, n, L, T, halo,
+            tabs.use_classes)
+    pad = torch.full((halo,), PAD_BYTE, dtype=torch.int32, device=cuda)
+    _kernels.reset_launches()
+    with_pad = _kernels.lane_scan(*args, head=pad)
+    without = _kernels.lane_scan(*args)
+    for a, b in zip(with_pad, without):
+        assert torch.equal(a, b)
+    assert _kernels.LAUNCHES["lane_scan_head"] == 1
+    rng = np.random.default_rng(n)
+    tail = np.frombuffer(b"abcdefghabcdefgh", np.uint8)[-halo:].astype(np.int32)
+    for head_np in (tail, rng.integers(0, 257, halo).astype(np.int32)):
+        head = torch.from_numpy(head_np).to(cuda)
+        got = scan_cuda.scan_lanes(*args, head=head)
+        want = scan_cuda._lane_scan_plain(*args, head=head)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_shard_bodies_equal_cpu(cuda) -> None:
+    """The sharded scan's per-rank bodies (K8) on the card equal the same
+    bodies on CPU copies of their inputs, for 3 ranks by hand."""
+    from ahocorasick_rs_tpu_torch.models.automaton import PAD_BYTE
+    from ahocorasick_rs_tpu_torch.parallel import sharded
+
+    names = _names(81, 50) + [b"abcdefghabcdefgh"]
+    am = build_automaton(names)
+    pf = build_prefilter(names)
+    hay = np.frombuffer(_corpus(82, 300_001, names, 900), np.uint8)
+    n, n_dev, halo = len(hay), 3, am.max_len - 1
+    tabs = {d: scan_cuda.DeviceTables(am, "classed", d) for d in ("cpu", cuda)}
+    _kernels.reset_launches()
+    # dense: each rank's head is its left neighbour's tail
+    L, T = sharded.dense_layout(n, n_dev, halo, lanes_per_device=64)
+    LT = L * T
+    shards = [torch.from_numpy(sharded._shard_of(hay, d, LT))
+              for d in range(n_dev)]
+    for d in range(n_dev):
+        head = (sharded.shard_tail(shards[d - 1], n - (d - 1) * LT, halo)
+                if d else torch.full((halo,), PAD_BYTE, dtype=torch.int32))
+        outs = [
+            sharded.shard_scan_body(
+                tabs[dev], shards[d].to(dev), head.to(dev), n - d * LT,
+                d * LT, L, T, halo, 1 << 14,
+            )
+            for dev in ("cpu", cuda)
+        ]
+        for a, b in zip(*outs):
+            assert torch.equal(a, b.cpu())
+    # Teddy: each rank reads its right neighbour's head
+    scanners = {
+        dev: scan_teddy.TeddyScanner(
+            am, pf, t.table, t.classes, t.match_count, t.use_classes
+        )
+        for dev, t in tabs.items()
+    }
+    W = am.max_len + scan_teddy.COARSE - 1
+    rows, Hr = sharded.teddy_layout(n, n_dev, W)
+    LT = rows * 128
+    shards = [torch.from_numpy(sharded._shard_of(hay, d, LT))
+              for d in range(n_dev)]
+    for d in range(n_dev):
+        right = (shards[d + 1][:Hr] if d + 1 < n_dev
+                 else torch.zeros(Hr, dtype=torch.uint8))
+        outs = [
+            sharded.shard_teddy_body(
+                scanners[dev], shards[d].to(dev), right.to(dev), n - d * LT,
+                d * LT, W, 1 << 14, 1 << 13,
+            )
+            for dev in ("cpu", cuda)
+        ]
+        for a, b in zip(*outs):
+            assert torch.equal(a, b.cpu())
+    # batch: row blocks, no halo
+    rng = np.random.default_rng(83)
+    docs = [np.frombuffer(_corpus(i, int(rng.integers(20, 600)), names, 2),
+                          np.uint8) for i in range(301)]
+    Bb, T = sharded.batch_layout([len(x) for x in docs], n_dev)
+    Bl = Bb // n_dev
+    for d in range(n_dev):
+        buf = np.zeros((Bl, T), dtype=np.uint8)
+        lens = np.zeros(Bl, dtype=np.int32)
+        for r, x in enumerate(docs[d * Bl : (d + 1) * Bl]):
+            buf[r, : len(x)] = x
+            lens[r] = len(x)
+        outs = [
+            sharded.shard_batch_body(
+                tabs[dev], torch.from_numpy(buf).to(dev),
+                torch.from_numpy(lens).to(dev), d * Bl * T, 1 << 14,
+            )
+            for dev in ("cpu", cuda)
+        ]
+        for a, b in zip(*outs):
+            assert torch.equal(a, b.cpu())
+    assert _kernels.LAUNCHES["shard_body"] == 3 * n_dev
+    assert _kernels.LAUNCHES["lane_scan_head"] == n_dev
+
+
+def test_api_sharded_one_rank_on_card(cuda) -> None:
+    """backend="sharded" with no process group: a world of one rank on the
+    card, through K2 with a head, Teddy and the batch kernel."""
+    names = [n.decode() for n in _names(91, 50)]
+    hay = _corpus(92, 3 << 20, [n.encode() for n in names], 3000).decode()
+    docs = [hay[i : i + 600] for i in range(0, 600 * 4000, 600)]
+    host = AhoCorasick(names, backend="native", device=cuda)
+    for teddy, tier, btier in (("auto", "teddy_sharded", "teddy_sharded_batch"),
+                               ("off", "sharded", "sharded_batch")):
+        _kernels.reset_launches()
+        ac = AhoCorasick(names, backend="sharded", device=cuda)
+        ac._teddy_state = teddy
+        assert ac.find_matches_as_indexes(hay) == host.find_matches_as_indexes(
+            hay
+        )
+        assert ac.stats()["last_backend"] == tier
+        assert ac.find_matches_as_indexes_batch(docs) == [
+            host.find_matches_as_indexes(d) for d in docs
+        ]
+        assert ac.stats()["last_backend"] == btier
+        assert _kernels.LAUNCHES["shard_body"] >= 2
+        if teddy == "off":
+            assert _kernels.LAUNCHES["lane_scan_head"] > 0
+            assert _kernels.LAUNCHES["batch_scan"] > 0

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``ahocorasick_rs_tpu_torch``
-and neither ``chip_smoke.py`` nor ``profile_main_path.py`` imports ``jax`` or the JAX package
-(``ahocorasick_rs_tpu``), not even a module of it that does not use JAX.
+and neither ``chip_smoke.py`` nor ``profile_main_path.py`` imports ``jax``
+or the JAX package (``ahocorasick_rs_tpu``), not even a module of it that
+does not use JAX.
 Checked on the source text with ``ast``, so a lazy import inside a
 function counts too.  The test itself imports both packages, as every
 port test file does, to show they load side by side.
@@ -9,6 +10,7 @@ port test file does, to show they load side by side.
 from __future__ import annotations
 
 import ast
+import importlib
 import os
 
 import pytest
@@ -54,6 +56,20 @@ def test_sources_found() -> None:
         assert os.path.exists(os.path.join(ROOT, script)), f"{script} is missing"
     assert len(paths) >= 15
     assert ahocorasick_rs_tpu.__name__ != ahocorasick_rs_tpu_torch.__name__
+
+
+@pytest.mark.parametrize("module", ["sharded", "multihost"])
+def test_parallel_modules_checked(module: str) -> None:
+    """The multi-GPU modules are among the checked sources, import
+    ``torch.distributed`` and nothing of JAX."""
+    path = os.path.join(
+        ROOT, "ahocorasick_rs_tpu_torch", "parallel", f"{module}.py"
+    )
+    assert path in _sources()
+    tops = _imported_tops(path)
+    assert "torch" in tops and not tops & FORBIDDEN
+    mod = importlib.import_module(f"ahocorasick_rs_tpu_torch.parallel.{module}")
+    assert "jax" not in vars(mod)
 
 
 @pytest.mark.parametrize(
