@@ -10,6 +10,7 @@ verification, or a halo'd lane scan), with host tiers for small inputs.
 
 from .api import AhoCorasick, BytesAhoCorasick
 from .models.engine import Implementation, MatchKind
+from .utils.serialization import load_matcher, save_matcher
 
 # Backwards compatibility aliases, mirroring the reference
 # (upstream pysrc/ahocorasick_rs/__init__.py:9-12).
@@ -22,6 +23,9 @@ __all__ = [
     "BytesAhoCorasick",
     "MatchKind",
     "Implementation",
+    # Device extras (no reference counterpart):
+    "save_matcher",
+    "load_matcher",
     # Deprecated:
     "MATCHKIND_STANDARD",
     "MATCHKIND_LEFTMOST_FIRST",

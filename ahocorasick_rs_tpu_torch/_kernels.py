@@ -30,7 +30,9 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
-SOURCES = ("scan.cu", "teddy.cu", "stride2.cu", "sparse.cu", "batch.cu")
+SOURCES = (
+    "scan.cu", "teddy.cu", "stride2.cu", "sparse.cu", "batch.cu", "probe.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,12 +41,22 @@ NVCC_FLAGS = (
 #: launches per kernel since the last :func:`reset_launches`;
 #: ``lane_scan_head`` counts the K2 launches that carry a neighbour's head
 #: (also counted under ``lane_scan``), ``shard_body`` the per-rank bodies
-#: of the sharded scan (K8) that ran on a card
+#: of the sharded scan (K8) that ran on a card, ``probe_*`` the layout
+#: probes P1 and P2
 LAUNCHES: dict[str, int] = {
     "fire": 0, "lane_scan": 0, "lane_scan_head": 0, "compact": 0,
     "verify": 0, "batch_scan": 0, "stride2_scan": 0, "sparse_scan": 0,
-    "shard_body": 0,
+    "shard_body": 0, "probe_reduce": 0, "probe_rollrows": 0,
 }
+#: K1 launches by prefilter shape ``(m, words, passes)`` since the last
+#: :func:`reset_launches` (``tune()`` launches K1 at every candidate's)
+FIRE_CONFIGS: dict[tuple[int, int, int], int] = {}
+#: positions a K1 block stages unless the caller names another tile
+FIRE_TILE = 4096
+#: the tiles K1 takes: multiples of its 256 threads, up to 65,536
+FIRE_TILE_STEP, FIRE_TILE_MAX = 256, 1 << 16
+#: rows per block of the layout probes' ``[R, 128]`` arrays
+PROBE_BLOCK_ROWS = 1024
 #: compiler output per source (ptxas register and shared-memory report)
 BUILD_LOG: dict[str, str] = {}
 #: wall seconds of the last build (0.0 when every library was cached)
@@ -61,19 +73,22 @@ _SIGNATURES = {
                      _P, _P, _P],
     "ac_compact": [_P, _I64, _I32, _P, _P, _P, _P, _P],
     "ac_compact_chunk": [],
-    "ac_fire": [_P, _I32, _P, _I64, _I32, _I32, _I32, _P, _P],
+    "ac_fire": [_P, _I32, _P, _I64, _I32, _I32, _I32, _I32, _P, _P],
     "ac_verify": [_P, _I32, _P, _I32, _P, _I64, _P, _I32, _I32, _P, _P],
     "ac_stride2_scan": [_P, _I32, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P,
                         _P],
     "ac_sparse_scan": [_P, _I64, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P,
                        _P, _P],
     "ac_batch_scan": [_P, _I32, _P, _I32, _P, _P, _P, _I32, _I32, _P, _P, _P],
+    "ac_probe_reduce": [_P, _I64, _P, _P],
+    "ac_probe_rollrows": [_P, _I64, _P, _P],
 }
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    FIRE_CONFIGS.clear()
 
 
 def _nvcc() -> str:
@@ -220,9 +235,11 @@ def compact(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 def fire(
     tables: torch.Tensor, hay: torch.Tensor, m: int, words: int,
-    passes: int,
+    passes: int, tile: Optional[int] = None,
 ) -> torch.Tensor:
-    """K1: uint8 fire mask, the shape of ``hay``."""
+    """K1: uint8 fire mask, the shape of ``hay``; a block stages ``tile``
+    positions (default :data:`FIRE_TILE`; the mask is the same for every
+    tile)."""
     dev = hay.device
     if dev.type != "cuda":
         raise ValueError("fire kernel needs CUDA tensors")
@@ -234,13 +251,21 @@ def fire(
             f"fire: tables {tuple(tables.shape)} do not fit m={m}, "
             f"words={words}, passes={passes} (at most 256 rows, m <= 8)"
         )
+    tile = FIRE_TILE if tile is None else tile
+    if tile % FIRE_TILE_STEP or not FIRE_TILE_STEP <= tile <= FIRE_TILE_MAX:
+        raise ValueError(
+            f"fire: tile {tile} is not a multiple of {FIRE_TILE_STEP} in "
+            f"[{FIRE_TILE_STEP}, {FIRE_TILE_MAX}]"
+        )
     out = torch.empty_like(hay)
     lib = build()["teddy"]
     _raise_on(lib.ac_fire(
         tables.data_ptr(), rows, hay.data_ptr(), hay.numel(), m, words,
-        passes, out.data_ptr(), _stream(dev),
+        passes, tile, out.data_ptr(), _stream(dev),
     ), "fire")
     LAUNCHES["fire"] += 1
+    key = (m, words, passes)
+    FIRE_CONFIGS[key] = FIRE_CONFIGS.get(key, 0) + 1
     return out
 
 
@@ -359,3 +384,44 @@ def batch_scan(
     ), "batch_scan")
     LAUNCHES["batch_scan"] += 1
     return states, mask
+
+
+def _probe_args(name: str, x: torch.Tensor) -> int:
+    """Check a layout probe's input; return its row count."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} kernel needs CUDA tensors")
+    _check("x", x, torch.uint8, dev, 2)
+    rows = x.shape[0]
+    if x.shape[1] != 128 or rows % PROBE_BLOCK_ROWS:
+        raise ValueError(
+            f"{name}: x is {list(x.shape)}, not [a multiple of "
+            f"{PROBE_BLOCK_ROWS}, 128]"
+        )
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x is not 16-byte aligned")
+    return rows
+
+
+def probe_reduce(x: torch.Tensor) -> torch.Tensor:
+    """P1: uint8 [R/16, 128], the max over each group of 16 rows of a
+    uint8 [R, 128] array (R a multiple of 1024)."""
+    rows = _probe_args("probe_reduce", x)
+    out = torch.empty((rows // 16, 128), dtype=torch.uint8, device=x.device)
+    _raise_on(build()["probe"].ac_probe_reduce(
+        x.data_ptr(), rows, out.data_ptr(), _stream(x.device),
+    ), "probe_reduce")
+    LAUNCHES["probe_reduce"] += 1
+    return out
+
+
+def probe_rollrows(x: torch.Tensor) -> torch.Tensor:
+    """P2: each row of a uint8 [R, 128] array ANDed with the next row of
+    its 1024-row block (wrapping inside the block)."""
+    rows = _probe_args("probe_rollrows", x)
+    out = torch.empty_like(x)
+    _raise_on(build()["probe"].ac_probe_rollrows(
+        x.data_ptr(), rows, out.data_ptr(), _stream(x.device),
+    ), "probe_rollrows")
+    LAUNCHES["probe_rollrows"] += 1
+    return out

@@ -277,7 +277,10 @@ class _MatcherBase:
         backend: str,
         device: Union[str, torch.device, None],
         mesh: "MeshLike",
+        automaton: Optional[Automaton] = None,
     ) -> None:
+        """Set the matcher up; ``automaton`` is one already compiled from
+        ``byte_patterns`` (``load_matcher``), else it is built here."""
         if not isinstance(matchkind, MatchKind):
             raise TypeError(
                 f"matchkind must be a MatchKind, not {matchkind!r}"
@@ -298,7 +301,9 @@ class _MatcherBase:
             self._mesh = _sharded.as_group(mesh)
         self._matchkind = matchkind
         self._byte_patterns = byte_patterns
-        self._automaton = build_automaton(byte_patterns)
+        self._automaton = (
+            build_automaton(byte_patterns) if automaton is None else automaton
+        )
         self._implementation = (
             implementation
             if implementation is not None
@@ -422,15 +427,26 @@ class _MatcherBase:
         return self._native_scanner
 
     # -- prefiltered (Teddy) path --------------------------------------
+    #: persisted/tuned prefilter config {m, words, passes}, or None
+    _pf_config = None
+
     def _get_teddy(self) -> Optional[TeddyScanner]:
         """Build (once) and return the TeddyScanner, or None if unfit."""
         if self._implementation is Implementation.NoncontiguousNFA:
             return None
         if self._teddy is None:
-            from .models.prefilter import build_prefilter
+            from .models.prefilter import (
+                build_prefilter,
+                build_prefilter_config,
+            )
             from .ops.scan_teddy import TeddyScanner
 
-            pf = build_prefilter(self._byte_patterns)
+            if self._pf_config is not None:
+                pf = build_prefilter_config(
+                    self._byte_patterns, **self._pf_config
+                )
+            else:
+                pf = build_prefilter(self._byte_patterns)
             if pf is None or (
                 self._teddy_state == "auto" and pf.est_fire_rate > 0.05
             ):
@@ -1051,6 +1067,82 @@ class _MatcherBase:
             )
         self._note_scan(len(hay), time.perf_counter() - t0)
         return out
+
+    # -- measured-time prefilter tuning --------------------------------
+    def tune(self, sample: "str | Buffer") -> dict:
+        """Pick the fastest prefilter configuration by measured wall time.
+
+        Device extra: times each candidate (plane-count / pass-count
+        variants) end-to-end on ``sample`` — a representative haystack of
+        the caller's real workload — and keeps the winner for subsequent
+        scans.  Estimate models mispredict observed fire rates ~3x, so
+        measurement is the only reliable objective.  Each candidate runs
+        the fire kernel (K1) and the verify walk (K4) at its own prefilter
+        shape.  Returns a report: per-candidate seconds and the chosen
+        config.
+        """
+        from .models.prefilter import build_prefilter_candidates
+        from .ops.scan_teddy import TeddyScanner
+
+        if isinstance(sample, str):
+            hay = np.frombuffer(sample.encode("utf-8"), dtype=np.uint8)
+        else:
+            hay = as_byte_view(sample)
+        report: dict = {"candidates": [], "chosen": None}
+        if self._implementation is Implementation.NoncontiguousNFA:
+            report["chosen"] = "none (sparse engine has no prefilter)"
+            return report
+        candidates = build_prefilter_candidates(self._byte_patterns)
+        tables = self._get_device_tables()
+        best = None
+        for pf in candidates:
+            scanner = TeddyScanner(
+                self._automaton,
+                pf,
+                tables.table,
+                tables.classes,
+                tables.match_count,
+                tables.use_classes,
+            )
+            hay2d = scanner.stage(hay)
+            if scanner.occurrences(hay, hay2d=hay2d) is None:
+                seconds = float("inf")  # pathological fire rate
+            else:
+                # best-of-3, so that one slow outlier cannot pick a slow
+                # config that then persists through save_matcher.  Each
+                # call ends in the .cpu() fetch of its results, which waits
+                # for the device, so the time includes the kernels.
+                seconds = float("inf")
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    scanner.occurrences(hay, hay2d=hay2d)
+                    seconds = min(seconds, time.perf_counter() - t0)
+            entry = {
+                "m": pf.m,
+                "words": pf.words,
+                "passes": pf.passes,
+                "est_fire_rate": pf.est_fire_rate,
+                "seconds": seconds,
+            }
+            report["candidates"].append(entry)
+            if best is None or seconds < best[0]:
+                best = (seconds, pf, scanner)
+        if best is not None and best[0] != float("inf"):
+            _, pf, scanner = best
+            self._teddy = scanner
+            self._teddy_state = (
+                "force" if self._teddy_state == "force" else "auto"
+            )
+            report["chosen"] = {
+                "m": pf.m,
+                "words": pf.words,
+                "passes": pf.passes,
+            }
+            # survives save_matcher/load_matcher (rebuilt deterministically)
+            self._pf_config = dict(report["chosen"])
+        else:
+            report["chosen"] = "none (all candidates fell back)"
+        return report
 
     # -- observability -------------------------------------------------
     def stats(self) -> dict:

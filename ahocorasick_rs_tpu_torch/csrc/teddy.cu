@@ -21,10 +21,16 @@
 //   byte bound, so those lookups, not device memory, bound it.
 //   Design: the used lanes 0-15 of every table row (at most
 //   2 passes x 2 x 8 positions x 8 planes = 256 rows, 16 KiB) are staged
-//   in shared memory once per block, together with the block's 4096-byte
-//   haystack tile and its m-1 byte right overlap.  Each thread then works
-//   on 16 positions entirely from shared memory, with both passes in the
-//   one launch and an early exit once a pass has failed.
+//   in shared memory once per block, together with the block's haystack
+//   tile and its m-1 byte right overlap.  Each thread then works on
+//   tile / 256 positions entirely from shared memory, with both passes in
+//   the one launch and an early exit once a pass has failed.
+//   The tile (positions a block stages, the counterpart of the Pallas
+//   kernel's block rows) is a launch argument, a multiple of 256 up to
+//   kMaxFireTile, in dynamic shared memory; the default is 4096.  Every
+//   position reads its true next bytes whatever the tile, so the mask is
+//   the same for every tile.  Above 48 KiB of shared memory the launch
+//   raises the kernel's dynamic shared-memory limit first.
 //
 // K4 ac_verify replaces ahocorasick_rs_tpu/ops/scan_teddy.py
 // `_verify_body` up to the packed walk output.
@@ -46,28 +52,30 @@ namespace {
 
 constexpr int kPad = 256;
 constexpr int kFireThreads = 256;
-constexpr int kFirePer = 16;
-constexpr int kFireTile = kFireThreads * kFirePer;  // positions per block
-constexpr int kMaxRows = 256;                       // 2 * 2 * 8 * 8
+constexpr int kMaxFireTile = 1 << 16;  // positions per block, at most
+constexpr int kMaxRows = 256;          // 2 * 2 * 8 * 8
 constexpr int kMaxM = 8;
+constexpr int kTableBytes = kMaxRows * 16 * 4;
+constexpr int kStaticSmemLimit = 48 << 10;
 constexpr int32_t kStateMask = (1 << 24) - 1;
 
 __global__ void fire_kernel(const int32_t* __restrict__ tables, int32_t rows,
                             const uint8_t* __restrict__ hay, int64_t N,
                             int32_t m, int32_t words, int32_t passes,
-                            uint8_t* __restrict__ out) {
-  __shared__ uint32_t tab[kMaxRows * 16];
-  __shared__ uint8_t tile[kFireTile + kMaxM];
+                            int32_t tile_len, uint8_t* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* tab = smem;  // kMaxRows * 16 words
+  uint8_t* tile = reinterpret_cast<uint8_t*>(smem + kMaxRows * 16);
   for (int i = threadIdx.x; i < rows * 16; i += kFireThreads)
     tab[i] = static_cast<uint32_t>(tables[(i >> 4) * 128 + (i & 15)]);
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kFireTile;
-  for (int i = threadIdx.x; i < kFireTile + m - 1; i += kFireThreads) {
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * tile_len;
+  for (int i = threadIdx.x; i < tile_len + m - 1; i += kFireThreads) {
     const int64_t p = start + i;
     tile[i] = p < N ? hay[p] : 0;
   }
   __syncthreads();
   const int64_t forced_from = N - (m - 1);
-  for (int q = threadIdx.x; q < kFireTile; q += kFireThreads) {
+  for (int q = threadIdx.x; q < tile_len; q += kFireThreads) {
     const int64_t pos = start + q;
     if (pos >= N) break;
     bool fire = true;
@@ -118,16 +126,23 @@ __global__ void verify_kernel(const int32_t* __restrict__ vtable,
 extern "C" {
 
 int ac_fire(const void* tables, int32_t rows, const void* hay, int64_t N,
-            int32_t m, int32_t words, int32_t passes, void* out,
-            void* stream) {
-  if (rows > kMaxRows || m > kMaxM || m < 1)
+            int32_t m, int32_t words, int32_t passes, int32_t tile_len,
+            void* out, void* stream) {
+  if (rows > kMaxRows || m > kMaxM || m < 1 || tile_len < kFireThreads ||
+      tile_len > kMaxFireTile || tile_len % kFireThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (N + kFireTile - 1) / kFireTile;
+  const int smem = kTableBytes + tile_len + kMaxM;
+  if (smem > kStaticSmemLimit) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fire_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t blocks = (N + tile_len - 1) / tile_len;
   if (blocks > 0)
-    fire_kernel<<<static_cast<unsigned>(blocks), kFireThreads, 0,
+    fire_kernel<<<static_cast<unsigned>(blocks), kFireThreads, smem,
                   static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(tables), rows,
-        static_cast<const uint8_t*>(hay), N, m, words, passes,
+        static_cast<const uint8_t*>(hay), N, m, words, passes, tile_len,
         static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -53,18 +53,33 @@ DENSE_BAILOUT_MIN = 1 << 22
 COMPACT_BLOCK = 4096
 
 
-def to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
+def to_device(
+    buf: np.ndarray, device: torch.device,
+    stream: Optional[torch.cuda.Stream] = None,
+):
     """Copy a host uint8 array to ``device`` (through pinned memory on CUDA).
 
     The copy is issued ``non_blocking`` from a pinned buffer, so the host
     can stage the next segment while the device still works; the caching
     host allocator keeps the pinned block alive until the copy is done.
+    Without ``stream`` the copy goes on the current stream and the tensor
+    is returned.  With a side ``stream`` (CUDA only) the copy goes there,
+    an event is recorded after it, and ``(tensor, event)`` is returned:
+    before a kernel on another stream reads the tensor, that stream must
+    wait on the event, and the tensor must be ``record_stream``-ed to it
+    (:meth:`.scan_teddy.TeddyScanner.occurrences_streamed`).
     """
     if device.type != "cuda":
         return torch.from_numpy(np.array(buf, dtype=np.uint8, copy=True))
     pinned = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
     pinned.numpy()[...] = buf
-    return pinned.to(device, non_blocking=True)
+    if stream is None:
+        return pinned.to(device, non_blocking=True)
+    with torch.cuda.stream(stream):
+        out = pinned.to(device, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return out, ready
 
 
 def build_lanes(

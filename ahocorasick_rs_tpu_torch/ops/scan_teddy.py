@@ -69,12 +69,15 @@ def fire_mask(
     m: int,
     words: int,
     passes: int = 1,
+    tile: int | None = None,
 ) -> torch.Tensor:
     """K1: uint8 [Rtot, 128] fire mask for a row-major haystack layout,
-    all ``passes`` AND-combined."""
+    all ``passes`` AND-combined.  ``tile`` is the positions a kernel block
+    stages (``_kernels.FIRE_TILE`` by default); the mask does not depend
+    on it, so the plain version ignores it."""
     if hay2d.device.type == "cpu":
         return _fire_mask_plain(tables, hay2d, m, words, passes)
-    return _kernels.fire(tables, hay2d, m, words, passes)
+    return _kernels.fire(tables, hay2d, m, words, passes, tile)
 
 
 #: bit position where the verify table carries the "next state has matches"
@@ -269,13 +272,19 @@ class TeddyScanner:
         self.match_cap = 1 << 12
         #: set False after a scan observes a pathological fire rate
         self.worthwhile = True
+        #: side stream of the streamed pipeline's copies (CUDA, made once)
+        self._copy_stream: torch.cuda.Stream | None = None
 
-    def stage(self, hay: np.ndarray) -> torch.Tensor:
+    def stage(
+        self, hay: np.ndarray, stream: torch.cuda.Stream | None = None
+    ):
         """Pad + reshape + transfer a haystack to the device layout.
 
-        On CUDA the copy leaves a pinned host buffer ``non_blocking``, so a
-        caller can stage segment ``k+1`` while segment ``k``'s pipeline is
-        still queued (``occurrences_streamed``).
+        On CUDA the copy leaves a pinned host buffer ``non_blocking`` on
+        the current stream, and the staged tensor is returned.  With a side
+        ``stream`` the copy goes there and ``(tensor, ready event)`` is
+        returned (``scan_cuda.to_device``), so that segment ``k+1``'s copy
+        runs beside segment ``k``'s kernels (``occurrences_streamed``).
         """
         n = len(hay)
         rows = -(-max(n, 1) // 128)
@@ -284,7 +293,31 @@ class TeddyScanner:
         with torch.profiler.record_function("ahocorasick:stage"):
             buf = np.zeros(rows_p * 128, dtype=np.uint8)
             buf[:n] = hay
-            return to_device(buf.reshape(rows_p, 128), self.device)
+            return to_device(buf.reshape(rows_p, 128), self.device, stream)
+
+    def _stage_segment(
+        self, hay: np.ndarray
+    ) -> tuple[torch.Tensor, torch.cuda.Event | None]:
+        """Stage one segment of the streamed pipeline: on CUDA through the
+        side copy stream, with the event its copy records; on the CPU in
+        place, with no event."""
+        if self.device.type != "cuda":
+            return self.stage(hay), None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        return self.stage(hay, self._copy_stream)
+
+    def _segment_ready(
+        self, hay2d: torch.Tensor, ready: torch.cuda.Event | None
+    ) -> torch.Tensor:
+        """Make the current stream wait for a segment's copy, and keep the
+        caching allocator from reusing its memory while kernels queued on
+        the current stream still read it."""
+        if ready is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(ready)
+            hay2d.record_stream(cur)
+        return hay2d
 
     #: segment length of the double-buffered streamed pipeline
     SEG_BYTES = 64 << 20
@@ -297,9 +330,12 @@ class TeddyScanner:
         Splits the haystack into ``seg_bytes`` segments, each staged
         with a ``W``-byte right overlap so every match STARTING inside
         a segment is verified there; matches starting in the overlap are
-        dropped and re-found by the next segment.  Segment ``k+1``'s
-        host->device copy is issued before segment ``k``'s result fetch
-        blocks.
+        dropped and re-found by the next segment.  On CUDA segment
+        ``k+1``'s host->device copy is issued on the side copy stream
+        before segment ``k``'s kernels are queued on the current stream,
+        so the copy runs beside them; the current stream waits for a
+        segment's copy just before its kernels.  On the CPU the segments
+        run one after another.
         """
         n = len(hay)
         seg = seg_bytes or self.SEG_BYTES
@@ -316,13 +352,13 @@ class TeddyScanner:
         out_s: list[np.ndarray] = []
         out_e: list[np.ndarray] = []
         cur_win = window(0)
-        cur2d = self.stage(cur_win)
+        cur = self._stage_segment(cur_win)
         for i, s0 in enumerate(starts):
-            nxt_win = nxt2d = None
+            nxt_win = nxt = None
             if i + 1 < len(starts):
                 nxt_win = window(i + 1)
-                nxt2d = self.stage(nxt_win)  # async, overlaps compute
-            occ = self.occurrences(cur_win, hay2d=cur2d)
+                nxt = self._stage_segment(nxt_win)  # beside k's kernels
+            occ = self.occurrences(cur_win, hay2d=self._segment_ready(*cur))
             if occ is None:
                 return None  # fire rate says the dense tiers win
             pids, sts, ends = occ
@@ -332,7 +368,7 @@ class TeddyScanner:
             out_p.append(pids)
             out_s.append(sts + s0)
             out_e.append(ends + s0)
-            cur_win, cur2d = nxt_win, nxt2d
+            cur_win, cur = nxt_win, nxt
         pids = np.concatenate(out_p)
         sts = np.concatenate(out_s)
         ends = np.concatenate(out_e)

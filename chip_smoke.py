@@ -16,8 +16,14 @@ scan, the one-byte dense scan (10,000 names, whose pair table is over
 budget), the sparse engine and the match-dense bailout;
 ``find_matches_as_indexes_batch`` on the LONG batch (20,000 documents of
 624-633 bytes) through the Teddy pipeline and the batch kernel, and on the
-SHORT batch (10,000 documents of 72-75 bytes).  It also checks the
-streamed Teddy pipeline.  The sharded scan (K8) runs last: its per-rank
+SHORT batch (10,000 documents of 72-75 bytes).  It also checks and times
+the streamed Teddy pipeline (16 MiB segments staged on a side copy stream)
+against one whole-buffer pass; runs the layout probe tool
+(``ahocorasick_rs_tpu_torch.tools.probe_transpose_kernel``: P1 and P2 at
+4 and 64 MiB, the 64 MiB transpose, K1 at every tile of its sweep);
+``tune()`` on a 16 MiB slice, whose tuned matcher must agree with the host
+tier; and ``save_matcher``/``load_matcher`` of the tuned matcher, whose
+64 MiB call must equal the Teddy path's.  The sharded scan (K8) runs last: its per-rank
 bodies are held against the same bodies on the CPU, then two gloo ranks
 sharing the card and one NCCL rank (child processes of this script) make
 the sharded Teddy, dense and batch calls through the public API with
@@ -35,9 +41,9 @@ from __future__ import annotations
 
 import json
 import os
-import string
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,35 +62,12 @@ HBM_BYTES_PER_S = 3.35e12
 SHARD_RANKS = 2
 #: seconds a spawned sharded run may take before it fails
 SHARD_TIMEOUT_S = 400
-
-
-def synth_names(count: int, rng: np.random.Generator) -> list[bytes]:
-    """Lowercase 'name' patterns of 5-11 bytes (the LONG recipe)."""
-    letters = np.frombuffer(string.ascii_lowercase.encode(), dtype=np.uint8)
-    names = set()
-    while len(names) < count:
-        k = int(rng.integers(5, 12))
-        names.add(bytes(letters[rng.integers(0, 26, k)]))
-    return sorted(names)
-
-
-def synth_corpus(
-    n_bytes: int, names: list[bytes], rng: np.random.Generator
-) -> np.ndarray:
-    """Random lowercase words + spaces with a name spliced into about one
-    in 90 lines of 600 bytes (the LONG recipe)."""
-    letters = np.frombuffer(
-        (string.ascii_lowercase + "      ").encode(), dtype=np.uint8
-    )
-    corpus = letters[rng.integers(0, len(letters), n_bytes)]
-    line_len = 600
-    n_lines = n_bytes // line_len
-    hit_lines = rng.integers(0, n_lines, max(1, n_lines // 90))
-    for ln in hit_lines:
-        name = names[int(rng.integers(0, len(names)))]
-        off = int(ln) * line_len + int(rng.integers(0, line_len - 12))
-        corpus[off : off + len(name)] = np.frombuffer(name, dtype=np.uint8)
-    return corpus
+#: haystack bytes of the tune() phase (a slice of the names corpus)
+TUNE_MIB = 16
+#: segment bytes of the streamed Teddy phase (four segments of 64 MiB)
+STREAM_SEG_MIB = 16
+#: rows of the layout probes' 4 MiB arrays (the reference's 32 blocks)
+PROBE_SMALL_ROWS = 32 * 1024
 
 
 def long_docs(names: list[bytes]) -> list[str]:
@@ -188,7 +171,10 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
     from ahocorasick_rs_tpu_torch import _kernels
     from ahocorasick_rs_tpu_torch.models.automaton import build_automaton
     from ahocorasick_rs_tpu_torch.models.prefilter import build_prefilter
-    from ahocorasick_rs_tpu_torch.ops import scan_cuda, scan_teddy
+    from ahocorasick_rs_tpu_torch.ops import probe, scan_cuda, scan_teddy
+    from ahocorasick_rs_tpu_torch.tools.probe_transpose_kernel import (
+        SWEEP_TILES,
+    )
 
     am = build_automaton(names)
     pf = build_prefilter(names)
@@ -207,6 +193,11 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
     want = scan_teddy._fire_mask_plain(*fire_args)
     err = max_abs_err(got, want)
     require(err == 0, f"K1 fire differs from its plain version ({err})")
+    # the mask does not depend on the tile a block stages
+    for tile in SWEEP_TILES:
+        tile_err = max_abs_err(_kernels.fire(*fire_args, tile=tile), want)
+        require(tile_err == 0, f"K1 at tile {tile} differs from its plain "
+                               f"version ({tile_err})")
     N = hay2d.numel()
     out["fire"] = {
         "shape": f"hay uint8 {list(hay2d.shape)}, tables int32 "
@@ -221,6 +212,7 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
         "bound_by": "bytes",
         "library_ms": None,
         "fire_rate": float(got.float().mean()),
+        "tiles_equal": list(SWEEP_TILES),
     }
 
     # K3 on the Teddy path's shape: the COARSE group mask
@@ -436,6 +428,40 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
         # one lane alone: T + halo steps of binary searches and fail walks
         "dep_chain_ms": cuda_ms(lambda: _kernels.sparse_scan(*one_lane7), 5),
     }
+
+    # P1 and P2: the layout probes, on random bytes at the reference's 32
+    # blocks (4 MiB) and at K1's main-path layout (64 MiB)
+    rng = np.random.default_rng(SEED + 2)
+    for key, kernel, plain, library, out_div in (
+        ("probe_reduce", _kernels.probe_reduce, probe._reduce16_plain,
+         lambda x: torch.amax(x.view(-1, 16, 128), 1), 16),
+        ("probe_rollrows", _kernels.probe_rollrows, probe._rollrows_plain,
+         None, 1),
+    ):
+        by_size = {}
+        for rows in (PROBE_SMALL_ROWS, hay2d.shape[0]):
+            x = torch.from_numpy(
+                rng.integers(0, 256, (rows, 128), dtype=np.uint8)
+            ).to(dev)
+            err = max_abs_err(kernel(x), plain(x))
+            require(err == 0, f"{key} differs from its plain version at "
+                              f"{rows} rows ({err})")
+            by_size[rows] = {
+                "shape": f"x uint8 [{rows}, 128]",
+                "max_abs_err": err,
+                "ms": cuda_ms(lambda: kernel(x), 20),
+                "plain_ms": cuda_ms(lambda: plain(x), 5),
+                # each input byte read once, each output byte written once
+                "bound_ms": bound_ms(rows * 128 + rows * 128 // out_div),
+                "bound_by": "bytes",
+                "library_ms": (cuda_ms(lambda: library(x), 20)
+                               if library else None),
+            }
+        main_row = dict(by_size[hay2d.shape[0]])
+        main_row["max_abs_err"] = max(r["max_abs_err"]
+                                      for r in by_size.values())
+        main_row["small"] = by_size[PROBE_SMALL_ROWS]
+        out[key] = main_row
     return out
 
 
@@ -630,12 +656,119 @@ def phase_teddy(port, names_s, text) -> dict:
 
 
 def phase_streamed(scanner, corpus) -> dict:
-    whole = scanner.occurrences(corpus)
-    streamed = scanner.occurrences_streamed(corpus, seg_bytes=16 << 20)
-    require(whole is not None and streamed is not None, "Teddy declined")
-    for a, b in zip(whole, streamed):
-        require(np.array_equal(a, b), "streamed Teddy differs from one pass")
-    return {"occurrences": len(whole[0])}
+    """The streamed Teddy pipeline (16 MiB segments, each staged on the
+    scanner's side copy stream) against one whole-buffer pass, three of
+    each in turns, every result held equal; host-clock times of calls that
+    end in their results' fetch."""
+    from ahocorasick_rs_tpu_torch import _kernels
+
+    _kernels.reset_launches()
+    times: dict = {"whole_s": [], "streamed_s": []}
+    first = None
+    for _ in range(3):
+        for key, run in (
+            ("whole_s", lambda: scanner.occurrences(corpus)),
+            ("streamed_s", lambda: scanner.occurrences_streamed(
+                corpus, seg_bytes=STREAM_SEG_MIB << 20)),
+        ):
+            t0 = time.perf_counter()
+            occ = run()
+            times[key].append(time.perf_counter() - t0)
+            require(occ is not None, "Teddy declined")
+            if first is None:
+                first = occ
+            for a, b in zip(first, occ):
+                require(np.array_equal(a, b),
+                        "streamed Teddy differs from one pass")
+    launches = dict(_kernels.LAUNCHES)
+    for k in ("fire", "compact", "verify"):
+        require(launches[k] > 0, f"streamed Teddy launched no {k} kernel")
+    require(scanner._copy_stream is not None, "no side copy stream was made")
+    return {"matches": len(first[0]), "launches": launches,
+            "segments": -(-len(corpus) // (STREAM_SEG_MIB << 20)),
+            "device_call_s": times["streamed_s"], **times}
+
+
+def phase_probe(dev) -> dict:
+    """The layout probe tool through its entry points: P1 and P2 at 4 and
+    64 MiB with the transpose (``main``), then K1 at every tile of its
+    sweep (``fire_tile_sweep``); both hold every result against its plain
+    version or the default tile and raise on a difference."""
+    from ahocorasick_rs_tpu_torch import _kernels
+    from ahocorasick_rs_tpu_torch.tools import probe_transpose_kernel as tool
+
+    _kernels.reset_launches()
+    probes = tool.main(dev)
+    sweep = tool.fire_tile_sweep(dev)
+    launches = dict(_kernels.LAUNCHES)
+    for k in ("probe_reduce", "probe_rollrows", "fire"):
+        require(launches[k] > 0, f"the probe tool launched no {k} kernel")
+    require(sorted(sweep["tiles"]) == sorted(tool.SWEEP_TILES),
+            "the sweep left out a tile")
+    return {"launches": launches, "probes": probes, "sweep": sweep}
+
+
+def phase_tune(port, names_s, text, want_digest) -> dict:
+    """``tune()`` on a 16 MiB slice of the names corpus (LeftmostLongest,
+    DFA, ``backend="device"``, Teddy state left at auto): every candidate's
+    prefilter shape launches K1, and the tuned matcher's tuples equal the
+    host tier's.  Then the tuned matcher is saved, loaded on the default
+    device, and its 64 MiB call must equal the Teddy path's
+    (``want_digest``) through the tuned prefilter."""
+    from ahocorasick_rs_tpu_torch import _kernels
+
+    kind = port.MatchKind.LeftmostLongest
+    impl = port.Implementation.DFA
+    sample = text[: TUNE_MIB << 20]
+    ac = port.AhoCorasick(
+        names_s, matchkind=kind, implementation=impl, backend="device"
+    )
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    report = ac.tune(sample)
+    tune_s = time.perf_counter() - t0
+    require(isinstance(report["chosen"], dict),
+            f"tune() chose {report['chosen']!r}")
+    by_shape = dict(_kernels.FIRE_CONFIGS)
+    shapes = [(c["m"], c["words"], c["passes"]) for c in report["candidates"]]
+    require(len(shapes) >= 2, f"tune() measured {len(shapes)} candidates")
+    for shape in shapes:
+        require(by_shape.get(shape, 0) > 0, f"tune() never launched K1 at "
+                                            f"m, words, passes = {shape}")
+    got = ac.find_matches_as_indexes(sample)
+    require(ac.stats()["last_backend"] == "teddy", "tuned call not teddy")
+    launches = dict(_kernels.LAUNCHES)
+    for k in ("fire", "compact", "verify"):
+        require(launches[k] > 0, f"tune() launched no {k} kernel")
+    host = host_backend()
+    want = port.AhoCorasick(
+        names_s, matchkind=kind, implementation=impl, backend=host
+    ).find_matches_as_indexes(sample)
+    require(got == want, f"tuned tuples differ from the {host} tier")
+    chosen = report["chosen"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tuned.npz")
+        port.save_matcher(path, ac)
+        loaded = port.load_matcher(path)
+    require(loaded._device.type == "cuda", f"loaded on {loaded._device}")
+    require(loaded._pf_config == chosen, "the tuned config did not persist")
+    t0 = time.perf_counter()
+    again = loaded.find_matches_as_indexes(text)
+    torch.cuda.synchronize()
+    load_call_s = time.perf_counter() - t0
+    require(loaded.stats()["last_backend"] == "teddy", "loaded call not teddy")
+    t = loaded._teddy
+    require((t.m, t.words, t.passes) == tuple(chosen.values()),
+            "the loaded matcher did not rebuild the tuned prefilter")
+    require(digest(again) == want_digest,
+            "the loaded matcher's 64 MiB tuples differ from the Teddy path's")
+    return {
+        "launches": dict(_kernels.LAUNCHES), "matches": len(got),
+        "report": report, "fire_by_shape": {
+            ",".join(map(str, k)): v for k, v in by_shape.items()},
+        "tune_s": tune_s, "loaded_call_s": load_call_s,
+        "loaded_matches": len(again), "host_tier": host,
+    }
 
 
 def phase_dense(port, names_s, text) -> dict:
@@ -671,6 +804,7 @@ def phase_dense_k2(port, text) -> dict:
     """The one-byte dense scan (K2) on a real path: ContiguousNFA over
     10,000 names, whose pair table is over the 64 MiB classed budget."""
     from ahocorasick_rs_tpu_torch import _kernels
+    from ahocorasick_rs_tpu_torch.tools._synth import synth_names
 
     names_s = [
         x.decode()
@@ -859,6 +993,10 @@ def shard_child(argv: list[str]) -> int:
         global_mesh,
         init_distributed,
     )
+    from ahocorasick_rs_tpu_torch.tools._synth import (
+        synth_corpus,
+        synth_names,
+    )
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1019,6 +1157,12 @@ KERNELS = {
     "shard_body": ("K8 shard bodies (composite)",
                    "ahocorasick_rs_tpu_torch/parallel/sharded.py",
                    "ahocorasick_rs_tpu/parallel/sharded.py:95"),
+    "probe_reduce": ("P1 probe_reduce",
+                     "ahocorasick_rs_tpu_torch/csrc/probe.cu",
+                     "tools/probe_transpose_kernel.py:45"),
+    "probe_rollrows": ("P2 probe_rollrows",
+                       "ahocorasick_rs_tpu_torch/csrc/probe.cu",
+                       "tools/probe_transpose_kernel.py:51"),
 }
 
 
@@ -1032,6 +1176,10 @@ def main() -> int:
     try:
         import ahocorasick_rs_tpu_torch as port
         from ahocorasick_rs_tpu_torch import _kernels
+        from ahocorasick_rs_tpu_torch.tools._synth import (
+            synth_corpus,
+            synth_names,
+        )
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 3
@@ -1086,13 +1234,29 @@ def main() -> int:
 
     teddy = path("teddy path", phase_teddy, port, names_s, text)
     scanner = teddy.pop("scanner")
-    report["streamed"] = phase_streamed(scanner, corpus)
-    log(f"streamed teddy: equal ({report['streamed']['occurrences']} "
-        "occurrences)")
+    streamed = path("streamed teddy", phase_streamed, scanner, corpus)
+    log(f"  whole-buffer calls {[round(x * 1e3, 1) for x in streamed['whole_s']]}"
+        f" ms, {streamed['segments']} segments streamed")
+    probe = path("layout probes and K1 tile sweep", phase_probe, dev)
+    for size, r in probe["probes"]["probes"].items():
+        log(f"  {size}: P1 {r['reduce']['ms']:.4f} ms, P2 "
+            f"{r['rollrows']['ms']:.4f} ms")
+    log(f"  transpose {probe['probes']['transpose']['ms']:.4f} ms; K1 by "
+        "tile: " + ", ".join(
+            f"{k} {v['ms']:.4f} ms ({v['fires']} fires)"
+            for k, v in probe["sweep"]["tiles"].items()))
+    tune = path("tune() and save/load", phase_tune, port, names_s, text,
+                teddy["digest"])
+    log(f"  chosen {tune['report']['chosen']}; candidates " + ", ".join(
+        f"({c['m']},{c['words']},{c['passes']}) {c['seconds'] * 1e3:.2f} ms"
+        for c in tune["report"]["candidates"]))
     dense = path("dense path (K6)", phase_dense, port, names_s, text)
     dense_want = dense.pop("want")
     paths = {
         "teddy": teddy,
+        "streamed": streamed,
+        "probe": probe,
+        "tune": tune,
         "dense": dense,
         "dense_k2": path("dense path (K2)", phase_dense_k2, port, text),
         "sparse": path("sparse path (K7)", phase_sparse, port, names_s, text,
@@ -1141,6 +1305,11 @@ def main() -> int:
         })
         if "dep_chain_ms" in k:
             rows[-1]["dep_chain_ms"] = k["dep_chain_ms"]
+        if key == "fire":
+            rows[-1]["ms_by_tile"] = {
+                t: v["ms"] for t, v in probe["sweep"]["tiles"].items()}
+        if key in ("probe_reduce", "probe_rollrows"):
+            rows[-1]["small"] = k["small"]
         if key == "lane_scan":
             rows[-1]["launches_with_head"] = sum(
                 r["launches"]["lane_scan_head"] for r in paths.values())

@@ -13,11 +13,14 @@ off, which runs the stride-2 scan; the sparse engine, Standard,
 overlapping, with ``backend="device"``; the LONG batch through the Teddy
 pipeline and through the batch kernel; the SHORT batch; and the same Teddy,
 dense and LONG batch calls with ``backend="sharded"`` in a world of one
-rank, with no process group), times three calls of each on the host clock,
-then traces one call of each with ``torch.profiler``.  For each path it prints one JSON line: the wall time
-of the calls, the host time of each ``ahocorasick:*`` span, the device
-time of each kernel and copy, the union of device activity and the
-device's idle share of the traced call.  The Chrome traces go to
+rank, with no process group; and the Teddy scanner's streamed pipeline,
+16 MiB segments staged on its side copy stream, beside one whole-buffer
+pass), times three calls of each on the host clock, then traces one call
+of each with ``torch.profiler``.  For each path it prints one JSON line:
+the wall time of the calls, the host time of each ``ahocorasick:*`` span,
+the device time of each kernel and copy, the union of device activity,
+the device's idle share of the traced call, and the host-to-device copy
+time with the part of it that ran while a kernel ran.  The Chrome traces go to
 ``chiprun_out/``.  Without a CUDA card it exits non-zero.
 """
 
@@ -58,6 +61,30 @@ def device_busy_us(events) -> tuple[float, dict]:
     return busy, by_name
 
 
+def copy_beside_kernels_us(events) -> tuple[float, float]:
+    """Device time of the host-to-device copies, and the part of it during
+    which a kernel ran (us)."""
+    copies, kernels = [], []
+    for e in events:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name.startswith("ahocorasick:")):
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if e.name.startswith("Memcpy HtoD"):
+            copies.append(span)
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            kernels.append(span)
+    merged: list = []
+    for a, b in sorted(kernels):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    beside = sum(max(0.0, min(b, kb) - max(a, ka))
+                 for a, b in copies for ka, kb in merged)
+    return sum(b - a for a, b in copies), beside
+
+
 def profile_path(label: str, call) -> dict:
     """Three timed calls, then one traced call of ``call``."""
     walls = []
@@ -85,6 +112,7 @@ def profile_path(label: str, call) -> dict:
         if e.name.startswith("ahocorasick:"):
             spans[e.name] = spans.get(e.name, 0.0) + e.cpu_time_total / 1e3
     busy_us, by_name = device_busy_us(events)
+    copy_us, beside_us = copy_beside_kernels_us(events)
     if not by_name:
         raise SystemExit(f"{label}: the profiler saw no device activity")
     outside = traced_ms - sum(
@@ -103,6 +131,8 @@ def profile_path(label: str, call) -> dict:
         "device_ms_by_name": {k: v / 1e3 for k, v in by_name.items()},
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / traced_ms,
+        "htod_copy_ms": copy_us / 1e3,
+        "htod_copy_beside_kernels_ms": beside_us / 1e3,
     }
 
 
@@ -112,10 +142,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import ahocorasick_rs_tpu_torch as port
-    from chip_smoke import (
-        CORPUS_MIB, PATTERNS, SEED, long_docs, short_case, synth_corpus,
+    from ahocorasick_rs_tpu_torch.tools._synth import (
+        synth_corpus,
         synth_names,
     )
+    from chip_smoke import CORPUS_MIB, PATTERNS, SEED, long_docs, short_case
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -210,6 +241,14 @@ def main() -> int:
         ))
         if ac.stats()["last_backend"] != tier:
             raise SystemExit(f"{label} did not run {tier}")
+    # the streamed Teddy pipeline (four 16 MiB segments, each copied on
+    # the scanner's side stream) beside one whole-buffer pass
+    scanner = teddy._teddy
+    rows.append(profile_path(
+        "teddy_whole_buffer", lambda: scanner.occurrences(corpus)))
+    rows.append(profile_path(
+        "teddy_streamed",
+        lambda: scanner.occurrences_streamed(corpus, seg_bytes=16 << 20)))
     for tier, call in sharded_calls.items():
         rows.append(profile_path(tier, call))
         if sharded[tier].stats()["last_backend"] != tier:

@@ -491,3 +491,93 @@ def test_api_sharded_one_rank_on_card(cuda) -> None:
         if teddy == "off":
             assert _kernels.LAUNCHES["lane_scan_head"] > 0
             assert _kernels.LAUNCHES["batch_scan"] > 0
+
+
+@pytest.mark.parametrize("nblk", [1, 3, 32])
+def test_probe_kernels_equal_plain(cuda, nblk: int) -> None:
+    """P1 and P2 against their plain versions; P1 also against
+    ``torch.amax``, and a misshapen input raises."""
+    from ahocorasick_rs_tpu_torch.ops import probe
+
+    rng = np.random.default_rng(nblk)
+    x = torch.from_numpy(
+        rng.integers(0, 256, (nblk * 1024, 128), dtype=np.uint8)
+    ).to(cuda)
+    _kernels.reset_launches()
+    got = probe.reduce16(x)
+    assert torch.equal(got, probe._reduce16_plain(x))
+    assert torch.equal(got, torch.amax(x.view(-1, 16, 128), 1))
+    assert torch.equal(probe.rollrows(x), probe._rollrows_plain(x))
+    assert _kernels.LAUNCHES["probe_reduce"] == 1
+    assert _kernels.LAUNCHES["probe_rollrows"] == 1
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        probe.reduce16(x[:1000].contiguous())
+
+
+@pytest.mark.parametrize("config", [(6, 4, 2), (8, 8, 2), (3, 1, 1)], ids=str)
+def test_fire_kernel_every_tile_equals_plain(cuda, config) -> None:
+    from ahocorasick_rs_tpu_torch.tools.probe_transpose_kernel import (
+        SWEEP_TILES,
+    )
+
+    m, words, passes = config
+    names = _names(m * words + passes + 100, 80)
+    pf = build_prefilter_config(names, m, words, passes)
+    for n in (100, 300_001):
+        arr = np.frombuffer(_corpus(n, n, names, n // 300 + 1), np.uint8)
+        hay2d = scan_teddy.TeddyScanner.stage(
+            type("S", (), {"device": cuda})(), arr
+        )
+        tables = torch.from_numpy(pf.tables).to(cuda)
+        want = scan_teddy._fire_mask_plain(tables, hay2d, m, words, passes)
+        for tile in SWEEP_TILES:
+            got = scan_teddy.fire_mask(tables, hay2d, m, words, passes, tile)
+            assert torch.equal(got, want), tile
+    for bad in (100, 4097, 1 << 17):
+        with pytest.raises(ValueError, match="tile"):
+            _kernels.fire(tables, hay2d, m, words, passes, bad)
+
+
+def test_streamed_equals_whole_buffer_five_times(cuda) -> None:
+    """Streamed Teddy (segments staged on the side copy stream) against
+    one whole-buffer pass on the card, five times in a row."""
+    names = _names(101, 200)
+    am = build_automaton(names)
+    hay = np.frombuffer(_corpus(102, 8 << 20, names, 20_000), np.uint8)
+    tabs = scan_cuda.DeviceTables(am, "dfa", cuda)
+    sc = scan_teddy.TeddyScanner(
+        am, build_prefilter(names), tabs.table, tabs.classes,
+        tabs.match_count, tabs.use_classes,
+    )
+    want = sc.occurrences(hay)
+    assert want is not None and len(want[0]) > 10_000
+    for _ in range(5):
+        got = sc.occurrences_streamed(hay, seg_bytes=2 << 20)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    assert sc._copy_stream is not None
+
+
+def test_tune_and_load_on_card(cuda, tmp_path) -> None:
+    """tune() on the card launches K1 at every candidate's shape, and a
+    saved matcher loads on the card by default with the same tuples."""
+    from ahocorasick_rs_tpu_torch import load_matcher, save_matcher
+
+    names = [n.decode() for n in _names(111, 50)]
+    hay = _corpus(112, 3 << 20, [n.encode() for n in names], 3000).decode()
+    ac = AhoCorasick(names, backend="device", device=cuda)
+    _kernels.reset_launches()
+    report = ac.tune(hay)
+    assert isinstance(report["chosen"], dict)
+    for c in report["candidates"]:
+        assert _kernels.FIRE_CONFIGS[(c["m"], c["words"], c["passes"])] > 0
+    want = AhoCorasick(names, backend="native", device=cuda)
+    assert ac.find_matches_as_indexes(hay) == want.find_matches_as_indexes(hay)
+    path = str(tmp_path / "m.npz")
+    save_matcher(path, ac)
+    loaded = load_matcher(path)
+    assert loaded._device.type == "cuda"
+    assert loaded.find_matches_as_indexes(hay) == ac.find_matches_as_indexes(
+        hay
+    )
+    assert loaded.stats()["last_backend"] == "teddy"

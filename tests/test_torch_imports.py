@@ -78,3 +78,13 @@ def test_parallel_modules_checked(module: str) -> None:
 def test_no_jax_import(path: str) -> None:
     bad = _imported_tops(path) & FORBIDDEN
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {sorted(bad)}"
+
+
+def test_public_surface_equals_reference() -> None:
+    """The port exports the JAX package's public names, in its order."""
+    assert ahocorasick_rs_tpu_torch.__all__ == ahocorasick_rs_tpu.__all__
+    for name in ahocorasick_rs_tpu.__all__:
+        assert hasattr(ahocorasick_rs_tpu_torch, name), name
+    for cls in ("AhoCorasick", "BytesAhoCorasick"):
+        assert callable(getattr(getattr(ahocorasick_rs_tpu_torch, cls),
+                                "tune"))

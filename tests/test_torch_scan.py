@@ -266,6 +266,32 @@ def test_teddy_streamed_equals_single_dispatch() -> None:
     assert (whole[0] == 2).sum() >= 3
 
 
+@pytest.mark.parametrize("seg", [3000, 4096, 10_007])
+def test_teddy_streamed_match_across_every_seam(seg: int) -> None:
+    """Each seam of the streamed pipeline cuts a planted match (both the
+    longest pattern, which reaches into the next segment's window, and a
+    short one); the streamed scan equals one dispatch and the reference."""
+    patterns = [b"seamseamseam", b"xq", b"hello"]
+    rng = random.Random(seg)
+    hay = bytearray(bytes(rng.randrange(97, 123) for _ in range(5 * seg)))
+    for cut in range(seg, len(hay), seg):
+        hay[cut - 6 : cut + 6] = b"seamseamseam"
+        hay[cut - 13 : cut - 11] = b"xq"
+    arr = np.frombuffer(bytes(hay), dtype=np.uint8)
+    ref, port = _scanners(patterns, "classed")
+    whole = port.occurrences(arr)
+    streamed = port.occurrences_streamed(arr, seg_bytes=seg)
+    want = ref.occurrences(arr)
+    assert streamed is not None
+    for a, b, c in zip(whole, streamed, want):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    starts, ends = streamed[1], streamed[2]
+    for cut in range(seg, len(hay), seg):
+        assert ((starts < cut) & (ends > cut)).any()
+    assert port._copy_stream is None  # the CPU stages in place
+
+
 def test_teddy_dense_corpus_falls_back() -> None:
     """The corpus of test_teddy.py::test_teddy_dense_corpus_falls_back."""
     patterns = [bytes([c]) for c in b"abcdefgh"] + [b"abcdefghabcd"]
