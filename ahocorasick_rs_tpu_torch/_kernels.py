@@ -69,8 +69,8 @@ _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    "ac_lane_scan": [_P, _I32, _P, _I32, _P, _I64, _P, _P, _I32, _I32, _I32,
-                     _P, _P, _P],
+    "ac_lane_scan": [_P, _I32, _P, _I32, _P, _I64, _P, _I32, _I32, _I32,
+                     _I32, _P, _P, _P],
     "ac_compact": [_P, _I64, _I32, _P, _P, _P, _P, _P],
     "ac_compact_chunk": [],
     "ac_fire": [_P, _I32, _P, _I64, _I32, _I32, _I32, _I32, _P, _P],
@@ -174,20 +174,111 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"CUDA kernel {kernel} failed with error {err}")
 
 
+#: bit of the flagged K2 table that carries "the next state has matches"
+FLAG_SHIFT = 24
+#: threads an SM holds at once (Hopper), the sub-lanes K2 aims to give each
+SM_THREADS = 2048
+_SM_COUNT: dict[int, int] = {}
+
+
+def flag_table(table: torch.Tensor, match_count: torch.Tensor) -> torch.Tensor:
+    """K2's and K4's table: ``next | (match_count[next] > 0) << 24``
+    (int32), so a scan step reads the match flag with the next state."""
+    if table.shape[0] >= 1 << FLAG_SHIFT:
+        raise ValueError(
+            f"{table.shape[0]} states do not fit the flagged table (below "
+            f"2**{FLAG_SHIFT})"
+        )
+    return table | (
+        (match_count[table.long()] > 0).to(torch.int32) << FLAG_SHIFT
+    )
+
+
+def pack_fire_tables(
+    tables: torch.Tensor, m: int, words: int, passes: int
+) -> torch.Tensor:
+    """K1's packed tables: int32 ``[passes, m, 2, 16, WP]`` with entry
+    ``[p, k, lohi, nibble, w]`` = lane ``nibble`` of the raw row
+    ``((p*m + k)*2 + lohi)*words + w``, and ``WP`` = 4 for ``words`` <= 4,
+    else 8 (planes past ``words`` are 0, so they never hit).  One entry is
+    one or two 16-byte loads in the kernel."""
+    wp = 4 if words <= 4 else 8
+    raw = tables[:, :16].reshape(passes, m, 2, words, 16).transpose(3, 4)
+    out = tables.new_zeros((passes, m, 2, 16, wp))
+    out[..., :words] = raw
+    return out
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    idx = device.index if device.index is not None else (
+        torch.cuda.current_device()
+    )
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx
+        ).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def plan_sublanes(L: int, T: int, halo: int, sms: int) -> int:
+    """K2's sub-lane length ``S`` for ``L`` lanes of ``T`` bytes.
+
+    ``S`` divides ``T``, is at least ``halo`` (and 1) and, where ``T`` is a
+    multiple of 16, a multiple of 16 (the kernel stages 16-byte pieces).
+    It is the largest such length whose ``L*T/S`` sub-lanes still reach
+    7/8 of ``sms * SM_THREADS`` walks, or the smallest one if none does.
+    """
+    divisors = set()
+    for i in range(1, int(T ** 0.5) + 1):
+        if T % i == 0:
+            divisors.update((i, T // i))
+    cands = sorted(d for d in divisors if d >= max(halo, 1))
+    aligned = [d for d in cands if d % 16 == 0]
+    cands = aligned or cands
+    best = cands[0]
+    for d in cands:
+        if (L * T // d) * 8 >= 7 * sms * SM_THREADS:
+            best = d
+    return best
+
+
 def lane_scan(
-    table: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
-    match_count: torch.Tensor, n: int, L: int, T: int, halo: int,
-    use_classes: bool, head: Optional[torch.Tensor] = None,
+    flagged: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor, n: int,
+    L: int, T: int, halo: int, use_classes: bool,
+    head: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2: states int32 [L*T] and match mask uint8 [L*T]; ``head`` (int32
-    [halo], values 0-256) is read in place of PAD before position 0."""
+    """K2: states int32 [L*T] and match mask uint8 [L*T] of a uint8
+    haystack of ``L*T`` bytes (the first ``n`` real) walked as ``L`` lanes
+    of ``T`` bytes; ``head`` (int32 [halo], values 0-256) is read in place
+    of PAD before position 0.
+
+    ``flagged`` is :func:`flag_table` of the automaton's table.  ``states``
+    holds the state only where ``mask`` is 1; elsewhere it is undefined.
+    The kernel walks sub-lanes of :func:`plan_sublanes` bytes for this
+    card; the outputs do not depend on their length.
+    """
+    if hay.device.type != "cuda":
+        raise ValueError("lane_scan kernel needs CUDA tensors")
+    S = plan_sublanes(L, T, halo, sm_count(hay.device))
+    return _lane_scan_at(
+        S, flagged, classes, hay, n, L, T, halo, use_classes, head
+    )
+
+
+def _lane_scan_at(
+    S: int, flagged: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
+    n: int, L: int, T: int, halo: int, use_classes: bool,
+    head: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lane_scan` with sub-lanes of ``S`` bytes (``S`` = ``T`` walks
+    each lane in one thread)."""
     dev = hay.device
     if dev.type != "cuda":
         raise ValueError("lane_scan kernel needs CUDA tensors")
-    _check("table", table, torch.int32, dev, 2)
+    _check("flagged", flagged, torch.int32, dev, 2)
     _check("classes", classes, torch.int32, dev, 1)
     _check("hay", hay, torch.uint8, dev, 1)
-    _check("match_count", match_count, torch.int32, dev, 1)
     if head is not None:
         _check("head", head, torch.int32, dev, 1)
         if head.numel() != halo:
@@ -196,14 +287,25 @@ def lane_scan(
         raise ValueError("lane_scan: bad classes, layout or halo")
     if not 0 <= n <= L * T:
         raise ValueError(f"lane_scan: n={n} outside [0, {L * T}]")
+    if flagged.shape[0] >= 1 << FLAG_SHIFT:
+        raise ValueError(
+            f"lane_scan: {flagged.shape[0]} states do not fit the flagged "
+            f"table (below 2**{FLAG_SHIFT})"
+        )
+    if T % 16:
+        raise ValueError(f"lane_scan: T={T} is not a multiple of 16")
+    if S % 16 or T % S or S < halo or S < 16:
+        raise ValueError(
+            f"lane_scan: sub-lanes of {S} bytes do not fit T={T}, halo={halo}"
+        )
     states = torch.empty(L * T, dtype=torch.int32, device=dev)
     mask = torch.empty(L * T, dtype=torch.uint8, device=dev)
     lib = build()["scan"]
     _raise_on(lib.ac_lane_scan(
-        table.data_ptr(), table.shape[1], classes.data_ptr(),
+        flagged.data_ptr(), flagged.shape[1], classes.data_ptr(),
         int(use_classes), hay.data_ptr(), n,
-        None if head is None else head.data_ptr(), match_count.data_ptr(),
-        L, T, halo, states.data_ptr(), mask.data_ptr(), _stream(dev),
+        None if head is None else head.data_ptr(), L, T, halo, S,
+        states.data_ptr(), mask.data_ptr(), _stream(dev),
     ), "lane_scan")
     LAUNCHES["lane_scan"] += 1
     if head is not None:
@@ -234,22 +336,29 @@ def compact(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def fire(
-    tables: torch.Tensor, hay: torch.Tensor, m: int, words: int,
+    packed: torch.Tensor, hay: torch.Tensor, m: int, words: int,
     passes: int, tile: Optional[int] = None,
 ) -> torch.Tensor:
-    """K1: uint8 fire mask, the shape of ``hay``; a block stages ``tile``
-    positions (default :data:`FIRE_TILE`; the mask is the same for every
-    tile)."""
+    """K1: uint8 fire mask, the shape of ``hay``, over ``packed`` =
+    :func:`pack_fire_tables` of the prefilter's tables; a block stages
+    ``tile`` positions a step (default :data:`FIRE_TILE`; the mask is the
+    same for every tile)."""
     dev = hay.device
     if dev.type != "cuda":
         raise ValueError("fire kernel needs CUDA tensors")
-    _check("tables", tables, torch.int32, dev, 2)
+    _check("packed", packed, torch.int32, dev)
     _check("hay", hay, torch.uint8, dev)
     rows = passes * 2 * m * words
-    if tables.shape != (rows, 128) or rows > 256 or not 1 <= m <= 8:
+    if rows > 256 or not 1 <= m <= 8 or not 1 <= words <= 8:
         raise ValueError(
-            f"fire: tables {tuple(tables.shape)} do not fit m={m}, "
-            f"words={words}, passes={passes} (at most 256 rows, m <= 8)"
+            f"fire: m={m}, words={words}, passes={passes} need more than "
+            f"256 rows, m > 8 or words > 8"
+        )
+    wp = 4 if words <= 4 else 8
+    if packed.shape != (passes, m, 2, 16, wp) or packed.data_ptr() % 16:
+        raise ValueError(
+            f"fire: packed tables {tuple(packed.shape)} are not "
+            f"{(passes, m, 2, 16, wp)} or not 16-byte aligned"
         )
     tile = FIRE_TILE if tile is None else tile
     if tile % FIRE_TILE_STEP or not FIRE_TILE_STEP <= tile <= FIRE_TILE_MAX:
@@ -260,7 +369,7 @@ def fire(
     out = torch.empty_like(hay)
     lib = build()["teddy"]
     _raise_on(lib.ac_fire(
-        tables.data_ptr(), rows, hay.data_ptr(), hay.numel(), m, words,
+        packed.data_ptr(), rows, hay.data_ptr(), hay.numel(), m, words,
         passes, tile, out.data_ptr(), _stream(dev),
     ), "fire")
     LAUNCHES["fire"] += 1

@@ -452,14 +452,8 @@ class _MatcherBase:
             ):
                 self._teddy_state = "off"
                 return None
-            tables = self._get_device_tables()
             self._teddy = TeddyScanner(
-                self._automaton,
-                pf,
-                tables.table,
-                tables.classes,
-                tables.match_count,
-                tables.use_classes,
+                self._automaton, pf, self._get_device_tables()
             )
         return self._teddy
 
@@ -1096,14 +1090,7 @@ class _MatcherBase:
         tables = self._get_device_tables()
         best = None
         for pf in candidates:
-            scanner = TeddyScanner(
-                self._automaton,
-                pf,
-                tables.table,
-                tables.classes,
-                tables.match_count,
-                tables.use_classes,
-            )
+            scanner = TeddyScanner(self._automaton, pf, tables)
             hay2d = scanner.stage(hay)
             if scanner.occurrences(hay, hay2d=hay2d) is None:
                 seconds = float("inf")  # pathological fire rate

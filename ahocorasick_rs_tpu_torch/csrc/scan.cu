@@ -8,23 +8,41 @@
 // K2 ac_lane_scan replaces ahocorasick_rs_tpu/ops/scan_jax.py
 // `_scan_compact` up to the mask (`build_lanes` + `scan_lanes` + the
 // `match_count[state] > 0 & pos < n` test).
-//   Bound: one dependent table load per byte per lane.  The loads of one
-//   lane form a serial chain, so the kernel is bound by load latency
-//   (the DFA table of a 1000-name set is 6.75 MB and stays in the 50 MB
-//   L2), not by device-memory bytes.
-//   Design: one thread per lane keeps its state in a register and walks
-//   `halo` context bytes then its `T` bytes, so 65536 lanes give 65536
-//   independent chains to hide that latency.  The simple layout reads the
-//   haystack and writes the state stream with a stride of T between
-//   neighbouring threads, so each warp access touches 32 cache lines.
-//   This is known to be slow and is left for a later change (a transposed
-//   [T, L] layout or a shared-memory staged tile).
+//   Bound: one dependent table load per byte.  The loads of one walk form
+//   a serial chain, so the kernel is bound by L2 latency and by the L2's
+//   rate of scattered 4-byte loads (the tables of a 1,000-name set are
+//   0.7-6.8 MB and stay in the 50 MB L2), not by device-memory bytes:
+//   those are the haystack read once, the mask written once and a state
+//   at each match.
+//   Invariant: an automaton's state at a position depends only on the
+//   `halo` = max_len - 1 bytes before it and its own byte, so any walk
+//   that starts at the root `halo` bytes early reaches the same states.
+//   Design: the caller's L lanes of T bytes are cut into sub-lanes of S
+//   bytes (S divides T, S >= halo, a multiple of 16), S chosen by the
+//   wrapper so that the card holds about 2,048 walks an SM at any caller
+//   layout (_kernels.py `plan_sublanes`): the sharded scan's 512 lanes of
+//   64-128 KiB become 262,144 sub-lanes, not 4 blocks.  One thread walks
+//   one sub-lane: its `halo` warm-up bytes, then its S bytes.
+//   A block of 256 threads owns 256 neighbouring sub-lanes and stages
+//   them in rounds of C = 16 or 32 bytes a sub-lane into shared memory
+//   with 16-byte `cp.async` copies, double buffered so that round r+1
+//   loads while round r is walked; neighbouring copies fill whole 32-byte
+//   sectors.  The warm-up bytes come first, in ceil(halo / C) rounds of
+//   their own, so the shared footprint (25,616 bytes at most) does not
+//   grow with the halo and any pattern length launches.  Each row is
+//   padded to an odd number of 16-byte units.  The table is the flagged
+//   copy `next | has_match << 24` (_kernels.py `flag_table`), so a step
+//   is one dependent `__ldg`, and the byte classes sit in shared memory.  The
+//   walk overwrites its staged bytes with their mask bytes, and the block
+//   stores each round's mask with 16-byte stores.  `states` is written
+//   only where the mask is 1 (the compaction reads it nowhere else).
+//   An unaligned haystack view is staged with byte copies.
 //   Head: a shard of the sharded scan (parallel/sharded.py, replacing the
 //   `ppermute` halo of ahocorasick_rs_tpu/parallel/sharded.py
 //   `_shard_scan_fn`) passes the `halo` int32 bytes that precede it,
 //   received from its left neighbour, with PAD (256) for positions past
-//   the haystack's end.  Lane 0 reads `head[halo + p]` for `p < 0`; a null
-//   `head` reads PAD there, as before.
+//   the haystack's end.  The walk reads `head[halo + p]` for `p < 0`; a
+//   null `head` reads PAD there.  Bytes at or past `n` read PAD.
 //
 // K3 ac_compact replaces ahocorasick_rs_tpu/ops/scan_jax.py
 // `compact_sparse`.
@@ -47,33 +65,128 @@ constexpr int kThreads = 256;       // threads per compaction block
 constexpr int kPer = 16;            // mask bytes per thread
 constexpr int kChunk = kThreads * kPer;  // mask bytes per compaction block
 constexpr int kScanThreads = 1024;  // threads of the single offsets block
+constexpr int kSubThreads = 256;    // sub-lanes (threads) per lane-scan block
+constexpr int kClsBytes = 1040;     // 257 int32 classes, rounded up to 16
+constexpr int32_t kStateMask = (1 << 24) - 1;
 
-__global__ void lane_scan_kernel(const int32_t* __restrict__ table,
-                                 int32_t ncols,
-                                 const int32_t* __restrict__ classes,
-                                 int32_t use_classes,
-                                 const uint8_t* __restrict__ hay, int64_t n,
-                                 const int32_t* __restrict__ head,
-                                 const int32_t* __restrict__ match_count,
-                                 int32_t L, int32_t T, int32_t halo,
-                                 int32_t* __restrict__ states,
-                                 uint8_t* __restrict__ mask) {
-  const int32_t lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const int64_t base = static_cast<int64_t>(lane) * T;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage round r of the block's sub-lanes into `buf`: row j (stride RS)
+// holds the C bytes at offset (r - W) * C of sub-lane j, so the first W
+// rounds are the warm-up bytes before it.  Positions below 0 are not
+// staged (the walk reads the head there).  Commits one cp.async group.
+__device__ __forceinline__ void stage_round(const uint8_t* __restrict__ hay,
+                                            uint8_t* buf, int64_t g0,
+                                            int nsub, int32_t S, int32_t C,
+                                            int32_t W, int32_t RS, int r,
+                                            bool vec) {
+  const int64_t at = static_cast<int64_t>(r - W) * C;
+  if (vec) {
+    const int pieces = C >> 4;
+    for (int i = threadIdx.x; i < nsub * pieces; i += kSubThreads) {
+      const int j = i / pieces, k = i - j * pieces;
+      const int64_t p = (g0 + j) * S + at + 16 * k;
+      if (p >= 0) cp_async16(buf + j * RS + 16 * k, hay + p);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nsub * C; i += kSubThreads) {
+      const int j = i / C, k = i - j * C;
+      const int64_t p = (g0 + j) * S + at + k;
+      if (p >= 0) buf[j * RS + k] = hay[p];
+    }
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kSubThreads)
+lane_scan_kernel(const int32_t* __restrict__ ftable, int32_t ncols,
+                 const int32_t* __restrict__ classes, int32_t use_classes,
+                 const uint8_t* __restrict__ hay, int64_t n,
+                 const int32_t* __restrict__ head, int32_t halo, int64_t G,
+                 int32_t S, int32_t C, int32_t W, int32_t RS, bool vec,
+                 int32_t* __restrict__ states, uint8_t* __restrict__ mask) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int32_t* cls = reinterpret_cast<int32_t*>(smem);
+  uint8_t* const buf0 = smem + kClsBytes;  // two buffers of kSubThreads rows
+  const int tid = threadIdx.x;
+  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * kSubThreads;
+  const int nsub =
+      G - g0 < kSubThreads ? static_cast<int>(G - g0) : kSubThreads;
+  for (int i = tid; i <= kPad; i += kSubThreads)
+    cls[i] = use_classes ? __ldg(classes + i) : i;
+  const bool live = tid < nsub;
+  const int64_t p0 = (g0 + tid) * S;
+  const int rounds = W + S / C;
+  const int skip = W * C - halo;  // staged warm-up bytes before p0 - halo
   int32_t s = 0;
-  for (int32_t j = -halo; j < T; ++j) {
-    const int64_t p = base + j;
-    int32_t b;
-    if (p < 0)
-      b = head ? __ldg(head + halo + p) : kPad;
-    else
-      b = p < n ? static_cast<int32_t>(hay[p]) : kPad;
-    if (use_classes) b = __ldg(classes + b);
-    s = __ldg(table + static_cast<int64_t>(s) * ncols + b);
-    if (j >= 0) {
-      states[p] = s;
-      mask[p] = (p < n && __ldg(match_count + s) > 0) ? 1 : 0;
+  stage_round(hay, buf0, g0, nsub, S, C, W, RS, 0, vec);
+  for (int r = 0; r < rounds; ++r) {
+    uint8_t* cur = buf0 + (r & 1) * kSubThreads * RS;
+    __syncthreads();  // every thread is done with the buffer refilled next
+    if (r + 1 < rounds) {
+      stage_round(hay, buf0 + ((r + 1) & 1) * kSubThreads * RS, g0, nsub, S,
+                  C, W, RS, r + 1, vec);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // round r's bytes are visible to every thread
+    uint8_t* row = cur + tid * RS;
+    const int64_t base = p0 + static_cast<int64_t>(r - W) * C;
+    if (live && r < W) {
+      // warm-up: the halo bytes before the sub-lane, from the root
+      for (int k = r ? 0 : skip; k < C; ++k) {
+        const int64_t p = base + k;
+        int32_t b;
+        if (p < 0)
+          b = head ? __ldg(head + halo + p) : kPad;
+        else
+          b = p < n ? row[k] : kPad;
+        s = __ldg(ftable + static_cast<int64_t>(s) * ncols + cls[b]) &
+            kStateMask;
+      }
+    } else if (live) {
+      for (int k = 0; k < C; k += 4) {
+        uint32_t* word = reinterpret_cast<uint32_t*>(row + k);
+        const uint32_t bytes = *word;
+        uint32_t out = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int64_t p = base + k + q;
+          const int32_t b =
+              p < n ? static_cast<int32_t>((bytes >> (8 * q)) & 255) : kPad;
+          const int32_t v =
+              __ldg(ftable + static_cast<int64_t>(s) * ncols + cls[b]);
+          s = v & kStateMask;
+          if ((v >> 24) && p < n) {
+            out |= 1u << (8 * q);
+            states[p] = s;
+          }
+        }
+        *word = out;  // this round's bytes become their mask bytes
+      }
+    }
+    if (r < W) continue;  // uniform across the block
+    __syncthreads();  // the round's mask is complete in shared memory
+    const int pieces = C >> 4;
+    const int64_t at = static_cast<int64_t>(r - W) * C;
+    for (int i = tid; i < nsub * pieces; i += kSubThreads) {
+      const int j = i / pieces, k = i - j * pieces;
+      *reinterpret_cast<uint4*>(mask + (g0 + j) * S + at + 16 * k) =
+          *reinterpret_cast<const uint4*>(cur + j * RS + 16 * k);
     }
   }
 }
@@ -191,22 +304,32 @@ __global__ void scatter_kernel(const uint8_t* __restrict__ mask, int64_t N,
 
 extern "C" {
 
-// `head` is null or holds `halo` int32 values in [0, 256].
-int ac_lane_scan(const void* table, int32_t ncols, const void* classes,
+// `ftable` is the flagged table (next | has_match << 24, states below
+// 2^24); `head` is null or holds `halo` int32 values in [0, 256].  The L*T
+// bytes are walked as sub-lanes of S bytes: S divides T, S >= halo and S
+// is a multiple of 16.  `states` is written only where `mask` is 1.
+int ac_lane_scan(const void* ftable, int32_t ncols, const void* classes,
                  int32_t use_classes, const void* hay, int64_t n,
-                 const void* head, const void* match_count, int32_t L,
-                 int32_t T, int32_t halo, void* states, void* mask,
-                 void* stream) {
-  const int threads = 128;
-  const int blocks = (L + threads - 1) / threads;
+                 const void* head, int32_t L, int32_t T, int32_t halo,
+                 int32_t S, void* states, void* mask, void* stream) {
+  if (S < 16 || S % 16 || T % S || halo > S || halo < 0 ||
+      (reinterpret_cast<uintptr_t>(mask) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t G = static_cast<int64_t>(L) * (T / S);
+  const int32_t C = S % 32 ? 16 : 32;
+  const int32_t W = (halo + C - 1) / C;  // warm-up rounds
+  const int32_t RS = C == 32 ? 48 : 16;  // an odd count of 16-byte units
+  const int smem = kClsBytes + 2 * kSubThreads * RS;  // at most 25,616
+  const bool vec = (reinterpret_cast<uintptr_t>(hay) & 15) == 0;
+  const int64_t blocks = (G + kSubThreads - 1) / kSubThreads;
   if (blocks > 0)
-    lane_scan_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(table), ncols,
-      static_cast<const int32_t*>(classes), use_classes,
-      static_cast<const uint8_t*>(hay), n,
-      static_cast<const int32_t*>(head),
-      static_cast<const int32_t*>(match_count), L, T, halo,
-      static_cast<int32_t*>(states), static_cast<uint8_t*>(mask));
+    lane_scan_kernel<<<static_cast<unsigned>(blocks), kSubThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(ftable), ncols,
+        static_cast<const int32_t*>(classes), use_classes,
+        static_cast<const uint8_t*>(hay), n,
+        static_cast<const int32_t*>(head), halo, G, S, C, W, RS, vec,
+        static_cast<int32_t*>(states), static_cast<uint8_t*>(mask));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -129,17 +129,27 @@ def scan_lanes(
     table: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
     match_count: torch.Tensor, n: int, L: int, T: int, halo: int,
     use_classes: bool, head: Optional[torch.Tensor] = None,
+    flagged: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2: (states int32 [L*T], match mask uint8 [L*T]) for a uint8
     haystack of ``L*T`` bytes of which the first ``n`` are real, preceded
-    by ``head`` (int32 [halo]) or by PAD."""
+    by ``head`` (int32 [halo]) or by PAD.
+
+    The mask is exact everywhere; ``states`` is defined where the mask is
+    1 (the kernel writes it nowhere else; the plain version writes every
+    position).  ``flagged`` is the kernel's table
+    (:meth:`DeviceTables.lane_table`), needed on a card; the plain version
+    reads ``table`` and ``match_count``.
+    """
     if hay.device.type == "cpu":
         return _lane_scan_plain(
             table, classes, hay, match_count, n, L, T, halo, use_classes,
             head,
         )
+    if flagged is None:
+        raise ValueError("scan_lanes on a card needs the flagged table")
     return _kernels.lane_scan(
-        table, classes, hay, match_count, n, L, T, halo, use_classes, head
+        flagged, classes, hay, n, L, T, halo, use_classes, head
     )
 
 
@@ -194,12 +204,13 @@ def _scan_compact(
     cap: int,
     use_classes: bool,
     head: Optional[torch.Tensor] = None,
+    flagged: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """uint8 haystack [L*T] → compacted (positions[cap], states[cap], total)."""
     return _compact_states(
         *scan_lanes(
             table, classes, hay, match_count, n, L, T, halo, use_classes,
-            head,
+            head, flagged,
         ),
         cap,
     )
@@ -209,7 +220,8 @@ def _compact_states(
     states: torch.Tensor, mask: torch.Tensor, cap: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3 over a scan's match mask, and the scan's states at the
-    compacted positions (-1 past the matches)."""
+    compacted positions (-1 past the matches): the only positions where
+    a kernel's ``states`` are defined."""
     positions, total = compact_sparse(mask, cap)
     states_at = torch.where(
         positions >= 0, states[positions.clamp(min=0).long()], -1
@@ -507,6 +519,7 @@ class DeviceTables:
         self.engine = engine
         self.keys = self.targets = self.fail = None
         self.table = None
+        self.flagged = None
         if engine == "dfa":
             self.table = self._upload(am.delta)
             classes = np.zeros(257, dtype=np.int32)  # unused placeholder
@@ -548,6 +561,14 @@ class DeviceTables:
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def lane_table(self) -> torch.Tensor:
+        """The flagged table ``next | has_match << 24``
+        (``_kernels.flag_table``) that K2 and the Teddy verify walk (K4)
+        read, built once on first use."""
+        if self.flagged is None:
+            self.flagged = _kernels.flag_table(self.table, self.match_count)
+        return self.flagged
 
     def ensure_packed2(self) -> bool:
         """Build + upload the stride-2 tables on first use; False if unfit."""
@@ -630,7 +651,7 @@ def scan_device(
             span, scan = "lane_scan", partial(
                 _scan_compact, tables.table, tables.classes, hay_dev,
                 tables.match_count, m, L, T, halo,
-                use_classes=tables.use_classes,
+                use_classes=tables.use_classes, flagged=tables.lane_table(),
             )
         cap = tables.last_cap
         while True:

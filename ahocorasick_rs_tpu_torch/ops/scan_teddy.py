@@ -29,9 +29,10 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from .._kernels import pack_fire_tables
 from ..models.automaton import Automaton, PAD_BYTE
 from ..models.prefilter import Prefilter
-from .scan_cuda import compact_sparse, to_device
+from .scan_cuda import DeviceTables, compact_sparse, to_device
 
 #: staged rows per block of the layout (``stage`` pads the row count to a
 #: power of two of at least this many rows once the haystack reaches it)
@@ -63,6 +64,28 @@ def _fire_mask_plain(
     return fire.to(torch.uint8).view_as(hay2d)
 
 
+def _fire_mask_packed_plain(
+    packed: torch.Tensor, hay2d: torch.Tensor, m: int, words: int,
+    passes: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of K1 over the packed tables: per pass, the
+    AND over ``k`` of whole entries, then any nonzero plane."""
+    h = hay2d.reshape(-1)
+    N = h.numel()
+    hp = torch.cat([h, h.new_zeros(m - 1)]).long()
+    lo, hi = hp & 15, hp >> 4
+    fire = torch.ones(N, dtype=torch.bool, device=h.device)
+    for p in range(passes):
+        acc = None
+        for k in range(m):
+            lo_k, hi_k = packed[p, k, 0], packed[p, k, 1]  # [16, WP] each
+            term = lo_k[lo[k : k + N]] & hi_k[hi[k : k + N]]
+            acc = term if acc is None else acc & term
+        fire &= (acc != 0).any(dim=1)
+    fire[max(0, N - (m - 1)) :] = True
+    return fire.to(torch.uint8).view_as(hay2d)
+
+
 def fire_mask(
     tables: torch.Tensor,
     hay2d: torch.Tensor,
@@ -70,20 +93,25 @@ def fire_mask(
     words: int,
     passes: int = 1,
     tile: int | None = None,
+    packed: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K1: uint8 [Rtot, 128] fire mask for a row-major haystack layout,
     all ``passes`` AND-combined.  ``tile`` is the positions a kernel block
-    stages (``_kernels.FIRE_TILE`` by default); the mask does not depend
-    on it, so the plain version ignores it."""
+    stages a step (``_kernels.FIRE_TILE`` by default); the mask does not
+    depend on it, so the plain version ignores it.  ``packed`` is
+    :func:`pack_fire_tables` of ``tables`` (``TeddyScanner.packed``), which
+    the kernel reads; the plain version reads ``tables``."""
     if hay2d.device.type == "cpu":
         return _fire_mask_plain(tables, hay2d, m, words, passes)
-    return _kernels.fire(tables, hay2d, m, words, passes, tile)
+    if packed is None:
+        raise ValueError("fire_mask on a card needs the packed tables")
+    return _kernels.fire(packed, hay2d, m, words, passes, tile)
 
 
 #: bit position where the verify table carries the "next state has matches"
 #: flag; states must stay below this (automata that large use the sparse
-#: engine, which never builds a Teddy scanner).
-FLAG_SHIFT = 24
+#: engine, which never builds a Teddy scanner).  K2's table is the same.
+FLAG_SHIFT = _kernels.FLAG_SHIFT
 
 
 def _verify_walk_plain(
@@ -174,6 +202,7 @@ def _fire_verify(
     passes: int,
     W: int,
     use_classes: bool,
+    packed: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """Fire + coarse compact + verify, with no host round trip between.
 
@@ -182,7 +211,9 @@ def _fire_verify(
     only trustworthy when ``ftotal <= cap`` and ``mtotal <= cap2`` — the
     caller retries with larger capacities otherwise.
     """
-    mask = fire_mask(tables, hay2d, m, words, passes).reshape(-1)
+    mask = fire_mask(
+        tables, hay2d, m, words, passes, packed=packed
+    ).reshape(-1)
     G = mask.numel() // COARSE
     grp = mask.view(G, COARSE).amax(dim=1)
     gidx = torch.arange(G, device=mask.device)
@@ -239,14 +270,10 @@ class TeddyScanner:
     """Per-automaton prefiltered scanner (device tables + adaptive state)."""
 
     def __init__(
-        self,
-        am: Automaton,
-        pf: Prefilter,
-        table: torch.Tensor,
-        classes: torch.Tensor,
-        match_count: torch.Tensor,
-        use_classes: bool,
+        self, am: Automaton, pf: Prefilter, tables: DeviceTables
     ) -> None:
+        """``tables`` are the automaton's dense tables (DFA or classed) on
+        the scanner's device; the verify walk reads their flagged table."""
         if am.num_states >= (1 << FLAG_SHIFT):
             # automata this big route to the sparse engine and never get a
             # prefilter; guard anyway for direct constructions
@@ -254,20 +281,23 @@ class TeddyScanner:
                 "prefiltered scan needs state ids < 2**24"
             )
         self.am = am
-        self.device = table.device
+        self.device = tables.device
         self.m = pf.m
         self.words = pf.words
         self.passes = pf.passes
         self.tables = torch.from_numpy(
             np.ascontiguousarray(pf.tables, dtype=np.int32)
         ).to(self.device)
-        # verify table: transition target | has_match(target) << FLAG_SHIFT
-        # — the verification walk reads match flags with the next state.
-        self.vtable = table | (
-            (match_count[table.long()] > 0).to(torch.int32) << FLAG_SHIFT
+        #: K1's packed copy of ``tables`` (one 16-byte load per nibble)
+        self.packed = pack_fire_tables(
+            self.tables, self.m, self.words, self.passes
         )
-        self.classes = classes
-        self.use_classes = use_classes
+        # verify table: transition target | has_match(target) << FLAG_SHIFT
+        # — the verification walk reads match flags with the next state;
+        # the same table K2 reads, shared with the dense tables.
+        self.vtable = tables.lane_table()
+        self.classes = tables.classes
+        self.use_classes = tables.use_classes
         self.fire_cap = 1 << 14
         self.match_cap = 1 << 12
         #: set False after a scan observes a pathological fire rate
@@ -405,6 +435,7 @@ class TeddyScanner:
                     self.passes,
                     W,
                     self.use_classes,
+                    self.packed,
                 )
             # ONE device-to-host copy for every output (waits for the device)
             with torch.profiler.record_function("ahocorasick:fetch"):

@@ -170,7 +170,7 @@ def shard_scan_body(
     n_local = min(max(n_local, 0), L * T)
     pos, st, total = _scan_compact(
         tables.table, tables.classes, shard, tables.match_count, n_local,
-        L, T, halo, cap, tables.use_classes, head,
+        L, T, halo, cap, tables.use_classes, head, tables.lane_table(),
     )
     _count_body(shard)
     return torch.where(pos >= 0, pos.long() + offset, -1), st, total
@@ -280,7 +280,7 @@ def shard_teddy_body(
     LT = shard.numel()
     mask = fire_mask(
         scanner.tables, shard.view(LT // 128, 128), scanner.m,
-        scanner.words, scanner.passes,
+        scanner.words, scanner.passes, packed=scanner.packed,
     ).reshape(-1)
     G = LT // COARSE
     grp = mask.view(G, COARSE).amax(dim=1)

@@ -155,15 +155,12 @@ def fire_tile_sweep(
     pf = build_prefilter(names)
     corpus = synth_corpus(mib << 20, names, rng)
     tables = scan_cuda.DeviceTables(am, "dfa", dev)
-    sc = scan_teddy.TeddyScanner(
-        am, pf, tables.table, tables.classes, tables.match_count,
-        tables.use_classes,
-    )
+    sc = scan_teddy.TeddyScanner(am, pf, tables)
     h2 = sc.stage(corpus)
 
     def fire(tile: Optional[int]) -> torch.Tensor:
         return scan_teddy.fire_mask(
-            sc.tables, h2, sc.m, sc.words, sc.passes, tile
+            sc.tables, h2, sc.m, sc.words, sc.passes, tile, sc.packed
         )
 
     want = fire(_kernels.FIRE_TILE)

@@ -7,7 +7,9 @@ Run from the repository root, with one CUDA card visible:
 
 It builds the CUDA kernels from ``ahocorasick_rs_tpu_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version at the main
-path's shapes (exact equality; all values are integers) and times both.
+path's shapes (exact equality; all values are integers; K2's states only
+where its mask is 1, also at the sharded ranks' layouts against its own
+single-device output) and times both.
 Then it drives every device path through the public API and checks every
 answer against the port's own host tier: ``find_matches_as_indexes`` on a
 64 MiB corpus with 1,000 name patterns (the upstream benchmark's LONG
@@ -68,6 +70,8 @@ TUNE_MIB = 16
 STREAM_SEG_MIB = 16
 #: rows of the layout probes' 4 MiB arrays (the reference's 32 blocks)
 PROBE_SMALL_ROWS = 32 * 1024
+#: K1 prefilter shapes (m, words, passes) checked besides the names' own
+K1_CONFIGS = ((8, 8, 2), (3, 1, 1))
 
 
 def long_docs(names: list[bytes]) -> list[str]:
@@ -155,6 +159,14 @@ def max_abs_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
+def lane_scan_err(got, want) -> int:
+    """K2's contract: max |difference| of the masks, and of the states
+    where the wanted mask is 1 (the kernel writes states nowhere else)."""
+    (st, mask), (st_p, mask_p) = got, want
+    hit = mask_p.bool()
+    return max(max_abs_err(mask, mask_p), max_abs_err(st[hit], st_p[hit]))
+
+
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
@@ -170,8 +182,12 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     from ahocorasick_rs_tpu_torch import _kernels
     from ahocorasick_rs_tpu_torch.models.automaton import build_automaton
-    from ahocorasick_rs_tpu_torch.models.prefilter import build_prefilter
+    from ahocorasick_rs_tpu_torch.models.prefilter import (
+        build_prefilter,
+        build_prefilter_config,
+    )
     from ahocorasick_rs_tpu_torch.ops import probe, scan_cuda, scan_teddy
+    from ahocorasick_rs_tpu_torch.parallel import sharded
     from ahocorasick_rs_tpu_torch.tools.probe_transpose_kernel import (
         SWEEP_TILES,
     )
@@ -182,37 +198,67 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
     n = len(corpus)
     out = {}
 
-    # K1: fire mask over the staged corpus, DFA tables (the Teddy path)
+    # K1: fire mask over the staged corpus, DFA tables (the Teddy path),
+    # through the scanner's packed tables
     dfa = scan_cuda.DeviceTables(am, "dfa", dev)
-    sc = scan_teddy.TeddyScanner(
-        am, pf, dfa.table, dfa.classes, dfa.match_count, dfa.use_classes
-    )
+    sc = scan_teddy.TeddyScanner(am, pf, dfa)
     hay2d = sc.stage(corpus)
     fire_args = (sc.tables, hay2d, sc.m, sc.words, sc.passes)
-    got = _kernels.fire(*fire_args)
+    kfire_args = (sc.packed, *fire_args[1:])
+    got = _kernels.fire(*kfire_args)
     want = scan_teddy._fire_mask_plain(*fire_args)
     err = max_abs_err(got, want)
     require(err == 0, f"K1 fire differs from its plain version ({err})")
     # the mask does not depend on the tile a block stages
     for tile in SWEEP_TILES:
-        tile_err = max_abs_err(_kernels.fire(*fire_args, tile=tile), want)
+        tile_err = max_abs_err(
+            _kernels.fire(*kfire_args, tile=tile), want
+        )
         require(tile_err == 0, f"K1 at tile {tile} differs from its plain "
                                f"version ({tile_err})")
     N = hay2d.numel()
+
+    def fire_bound(s) -> float:
+        # haystack read, mask written, packed tables read
+        return bound_ms(2 * N + 4 * s.packed.numel())
+
+    # the other prefilter shapes (8 planes; one plane, one pass) on the
+    # same staged corpus
+    configs = {}
+    for shape in K1_CONFIGS:
+        sc_k = scan_teddy.TeddyScanner(
+            am, build_prefilter_config(names, *shape), dfa
+        )
+        args_k = (sc_k.tables, hay2d, *shape)
+        got_k = _kernels.fire(sc_k.packed, *args_k[1:])
+        err_k = max_abs_err(got_k, scan_teddy._fire_mask_plain(*args_k))
+        require(err_k == 0, f"K1 at {shape} differs from its plain version "
+                            f"({err_k})")
+        configs[",".join(map(str, shape))] = {
+            "max_abs_err": err_k,
+            "ms": cuda_ms(
+                lambda: _kernels.fire(sc_k.packed, *args_k[1:]), 10
+            ),
+            "bound_ms": fire_bound(sc_k),
+            "fire_rate": float(got_k.float().mean()),
+        }
+        err = max(err, err_k)
     out["fire"] = {
         "shape": f"hay uint8 {list(hay2d.shape)}, tables int32 "
-                 f"{list(sc.tables.shape)}, m={sc.m} words={sc.words} "
+                 f"{list(sc.tables.shape)}, packed int32 "
+                 f"{list(sc.packed.shape)}, m={sc.m} words={sc.words} "
                  f"passes={sc.passes}",
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: _kernels.fire(*fire_args), 10),
+        "ms": cuda_ms(lambda: _kernels.fire(*kfire_args), 10),
         "plain_ms": cuda_ms(
             lambda: scan_teddy._fire_mask_plain(*fire_args), 2
         ),
-        "bound_ms": bound_ms(2 * N + sc.tables.numel() * 4),
+        "bound_ms": fire_bound(sc),
         "bound_by": "bytes",
         "library_ms": None,
         "fire_rate": float(got.float().mean()),
         "tiles_equal": list(SWEEP_TILES),
+        "configs": configs,
     }
 
     # K3 on the Teddy path's shape: the COARSE group mask
@@ -260,8 +306,10 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
     }
 
     # K2: lane scan at the dense path's layout, classed tables (the dense
-    # phase runs ContiguousNFA)
+    # phase runs ContiguousNFA); the contract is the mask bit-equal and
+    # the states equal where it is 1
     cls = scan_cuda.DeviceTables(am, "classed", dev)
+    flagged = cls.lane_table()
     halo = am.max_len - 1
     L, T = scan_cuda.choose_layout(n, halo)
     buf = np.zeros(L * T, dtype=np.uint8)
@@ -269,41 +317,103 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
     hay = torch.from_numpy(buf).to(dev)
     k2_args = (cls.table, cls.classes, hay, cls.match_count, n, L, T, halo,
                cls.use_classes)
-    st, lm = _kernels.lane_scan(*k2_args)
-    st_p, lm_p = scan_cuda._lane_scan_plain(*k2_args)
-    err = max(max_abs_err(st, st_p), max_abs_err(lm, lm_p))
+    kk2_args = (flagged, cls.classes, hay, n, L, T, halo, cls.use_classes)
+    st, lm = _kernels.lane_scan(*kk2_args)
+    want = scan_cuda._lane_scan_plain(*k2_args)
+    err = lane_scan_err((st, lm), want)
     require(err == 0, f"K2 lane scan differs from its plain version ({err})")
-    # K2 with a neighbour's head (the sharded scan): an all-PAD head is
-    # bit-equal to none, and the corpus's last bytes as a head equal the
-    # plain version
+    # K2 with a neighbour's head (the sharded scan): an all-PAD head
+    # equals none, and the corpus's last bytes as a head equal the plain
+    # version
     pad = torch.full((halo,), 256, dtype=torch.int32, device=dev)
-    for a, b in zip(_kernels.lane_scan(*k2_args, head=pad), (st, lm)):
-        require(torch.equal(a, b), "K2 with a PAD head differs from K2")
+    require(lane_scan_err(
+        _kernels.lane_scan(*kk2_args, head=pad), (st, lm)
+    ) == 0, "K2 with a PAD head differs from K2")
     head = torch.from_numpy(corpus[-halo:].astype(np.int32)).to(dev)
-    got = _kernels.lane_scan(*k2_args, head=head)
+    got = _kernels.lane_scan(*kk2_args, head=head)
     want = scan_cuda._lane_scan_plain(*k2_args, head=head)
-    head_err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    head_err = lane_scan_err(got, want)
     require(head_err == 0, f"K2 with a head differs from its plain version "
                            f"({head_err})")
     err = max(err, head_err)
-    one_lane = (cls.table, cls.classes, hay[:T].contiguous(),
-                cls.match_count, T, 1, T, halo, cls.use_classes)
+    matches = int(lm.sum(dtype=torch.int64))
+
+    def k2_bound(nbytes: int, hits: int) -> float:
+        # haystack read, mask written, a state at each match, the flagged
+        # table and the classes read
+        return bound_ms(2 * nbytes + 4 * hits + 4 * (flagged.numel() + 257))
+
+    # the sharded rank layouts over the same corpus, held against the
+    # kernel's own single-device output: two ranks of 512 lanes (the
+    # second half with the first half's tail as its head), one of 512
+    idx1, tot1 = _kernels.compact(lm, 1 << 16)
+    require(int(tot1) == matches, "K3 total differs from the mask's count")
+    layouts = {"single": {
+        "L": L, "T": T, "S": _kernels.plan_sublanes(
+            L, T, halo, _kernels.sm_count(dev)),
+        "ms": cuda_ms(lambda: _kernels.lane_scan(*kk2_args), 5),
+        "bound_ms": k2_bound(L * T, matches),
+    }}
+    require(L * T == n, "the corpus does not fill the single-device layout")
+    for ranks in (2, 1):
+        Ls, Ts = sharded.dense_layout(n, ranks, halo)
+        LT = Ls * Ts
+        parts, masks, idxs = [], [], []
+        for d in range(ranks):
+            shard = hay[d * LT : (d + 1) * LT]
+            n_d = min(max(n - d * LT, 0), LT)
+            h = (sharded.shard_tail(hay[(d - 1) * LT : d * LT], n - (d - 1)
+                                    * LT, halo) if d else pad)
+            a = (flagged, cls.classes, shard, n_d, Ls, Ts, halo,
+                 cls.use_classes)
+            st_d, m_d = _kernels.lane_scan(*a, head=h)
+            masks.append(m_d)
+            i_d, _ = _kernels.compact(m_d, 1 << 16)
+            idxs.append(torch.where(i_d >= 0, i_d + d * LT, -1))
+            parts.append((a, h, st_d, m_d))
+        m_all = torch.cat(masks)
+        require(torch.equal(m_all, lm), f"K2 mask at {ranks} rank(s) of "
+                                        f"{Ls} lanes differs")
+        hit = lm.bool()
+        st_all = torch.cat([p[2] for p in parts])
+        require(torch.equal(st_all[hit], st[hit]),
+                f"K2 states at {ranks} rank(s) differ at the mask")
+        got_idx = torch.cat(idxs)
+        got_idx = got_idx[got_idx >= 0]
+        require(torch.equal(got_idx, idx1[: matches]),
+                f"K3 lists at {ranks} rank(s) differ")
+        a, h = parts[-1][0], parts[-1][1]
+        layouts[f"ranks{ranks}"] = {
+            "L": Ls, "T": Ts, "S": _kernels.plan_sublanes(
+                Ls, Ts, halo, _kernels.sm_count(dev)),
+            "ms": cuda_ms(
+                lambda: _kernels.lane_scan(*a, head=h), 5
+            ),
+            "bound_ms": k2_bound(LT, int(parts[-1][3].sum(dtype=torch.int64))),
+        }
+    S = layouts["single"]["S"]
+    one_lane = (flagged, cls.classes, hay[:T].contiguous(), T, 1, T, halo,
+                cls.use_classes)
+    one_sub = (flagged, cls.classes, hay[:S].contiguous(), S, 1, S, halo,
+               cls.use_classes)
     out["lane_scan"] = {
-        "shape": f"L={L} T={T} halo={halo}, table int32 "
-                 f"{list(cls.table.shape)}",
+        "shape": f"L={L} T={T} halo={halo} S={S}, table int32 "
+                 f"{list(cls.table.shape)} (flagged)",
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: _kernels.lane_scan(*k2_args), 5),
+        "ms": layouts["single"]["ms"],
         "plain_ms": cuda_ms(lambda: scan_cuda._lane_scan_plain(*k2_args), 1),
-        # haystack, table and match counts read, int32 states and uint8
-        # mask written
-        "bound_ms": bound_ms(
-            L * T * (1 + 4 + 1) + 4 * (cls.table.numel() + am.num_states)
-        ),
+        "bound_ms": layouts["single"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        # one lane alone: T + halo dependent table loads in a row, the
-        # latency floor no lane layout can beat
-        "dep_chain_ms": cuda_ms(lambda: _kernels.lane_scan(*one_lane), 20),
+        "matches": matches,
+        "layouts": layouts,
+        # one lane walked by one thread: T + halo dependent table loads in
+        # a row, the floor of a walk per caller lane
+        "dep_chain_ms": cuda_ms(
+            lambda: _kernels._lane_scan_at(T, *one_lane), 20),
+        # one sub-lane: S + halo dependent loads, this design's floor
+        "sub_chain_ms": cuda_ms(
+            lambda: _kernels._lane_scan_at(S, *one_sub), 20),
     }
 
     # K3 on the dense path's shape: the lane scan's match mask
@@ -524,10 +634,7 @@ def phase_shard_kernels(dev, names, corpus, long_batch) -> dict:
     # neighbour's head is rank 1's first Hr bytes
     dfa = {d: scan_cuda.DeviceTables(am, "dfa", d) for d in devs}
     sc = {
-        d: scan_teddy.TeddyScanner(
-            am, pf, t.table, t.classes, t.match_count, t.use_classes
-        )
-        for d, t in dfa.items()
+        d: scan_teddy.TeddyScanner(am, pf, t) for d, t in dfa.items()
     }
     W = am.max_len + scan_teddy.COARSE - 1
     rows, Hr = sharded.teddy_layout(n, n_dev, W)
@@ -797,7 +904,7 @@ def phase_dense(port, names_s, text) -> dict:
     ).find_matches_as_indexes(text, overlapping=True)
     require(got == want, f"dense tuples differ from the {host} tier")
     return {"launches": launches, "matches": len(got), "device_call_s": times,
-            "want": want}
+            "want": want, "digest": digest(want)}
 
 
 def phase_dense_k2(port, text) -> dict:
@@ -835,7 +942,7 @@ def phase_dense_k2(port, text) -> dict:
     return {
         "launches": launches, "matches": len(got), "device_call_s": times,
         "states": am.num_states, "classes": am.num_classes,
-        "packed2_bytes": am.packed2_bytes,
+        "packed2_bytes": am.packed2_bytes, "digest": digest(want),
     }
 
 
@@ -859,7 +966,8 @@ def phase_sparse(port, names_s, text, want) -> dict:
         require(launches[k] > 0, f"sparse path launched no {k} kernel")
     # ``want`` is the host tier's answer for the same names and text
     require(got == want, "sparse tuples differ from the host tier")
-    return {"launches": launches, "matches": len(got), "device_call_s": times}
+    return {"launches": launches, "matches": len(got), "device_call_s": times,
+            "digest": digest(got)}
 
 
 def phase_batch(port, patterns, docs, teddy_state, tier, kernel) -> dict:
@@ -935,7 +1043,8 @@ def phase_bailout(port) -> dict:
         pats, matchkind=kind, backend=host_backend()
     ).find_matches_as_indexes(text)
     require(got == want, "bailout tuples differ from the host tier")
-    return {"rerouted_to": tier, "matches": len(got), "launches": launches}
+    return {"rerouted_to": tier, "matches": len(got), "launches": launches,
+            "digest": digest(got)}
 
 
 def digest(matches: list) -> str:
@@ -1196,9 +1305,12 @@ def main() -> int:
 
     _kernels.build()
     log(f"build: {_kernels.BUILD_SECONDS:.2f} s")
+    # ptxas -v: each kernel's name, then its spills, registers and shared
+    # memory
     for src, text in _kernels.BUILD_LOG.items():
         for line in text.splitlines():
-            if "Used" in line or "error" in line:
+            if any(k in line for k in ("entry function", "spill", "Used",
+                                       "error")):
                 log(f"  {src}: {line.strip()}")
 
     rng = np.random.default_rng(SEED)
@@ -1303,8 +1415,9 @@ def main() -> int:
             "library_ms": k["library_ms"], "equal": k["max_abs_err"] == 0,
             "shape": k["shape"],
         })
-        if "dep_chain_ms" in k:
-            rows[-1]["dep_chain_ms"] = k["dep_chain_ms"]
+        for extra in ("dep_chain_ms", "sub_chain_ms", "layouts", "configs"):
+            if extra in k:
+                rows[-1][extra] = k[extra]
         if key == "fire":
             rows[-1]["ms_by_tile"] = {
                 t: v["ms"] for t, v in probe["sweep"]["tiles"].items()}

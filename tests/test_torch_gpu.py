@@ -93,9 +93,18 @@ def test_lane_scan_kernel_equals_plain(cuda, engine: str, n: int) -> None:
     hay = torch.from_numpy(buf).to(cuda)
     args = (tabs.table, tabs.classes, hay, tabs.match_count, n, L, T, halo,
             tabs.use_classes)
-    st, mask = scan_cuda.scan_lanes(*args)
+    st, mask = scan_cuda.scan_lanes(*args, flagged=tabs.lane_table())
     st_p, mask_p = scan_cuda._lane_scan_plain(*args)
-    assert torch.equal(st, st_p) and torch.equal(mask, mask_p)
+    _assert_lane_scan_equal((st, mask), (st_p, mask_p))
+
+
+def _assert_lane_scan_equal(got, want) -> None:
+    """K2's contract: the mask bit-equal, the states equal where it is 1
+    (the kernel writes states nowhere else)."""
+    (st, mask), (st_p, mask_p) = got, want
+    assert torch.equal(mask, mask_p)
+    hit = mask_p.bool()
+    assert torch.equal(st[hit], st_p[hit])
 
 
 @pytest.mark.parametrize(
@@ -110,7 +119,8 @@ def test_fire_kernel_equals_plain(cuda, config, n: int) -> None:
     scanner_stage = scan_teddy.TeddyScanner.stage
     hay2d = scanner_stage(type("S", (), {"device": cuda})(), arr)
     tables = torch.from_numpy(pf.tables).to(cuda)
-    got = scan_teddy.fire_mask(tables, hay2d, m, words, passes)
+    packed = _kernels.pack_fire_tables(tables, m, words, passes)
+    got = scan_teddy.fire_mask(tables, hay2d, m, words, passes, packed=packed)
     want = scan_teddy._fire_mask_plain(tables, hay2d, m, words, passes)
     assert torch.equal(got, want)
 
@@ -121,9 +131,7 @@ def test_verify_kernel_equals_plain(cuda, engine: str) -> None:
     am = build_automaton(names)
     tabs = scan_cuda.DeviceTables(am, engine, cuda)
     pf = build_prefilter(names)
-    sc = scan_teddy.TeddyScanner(
-        am, pf, tabs.table, tabs.classes, tabs.match_count, tabs.use_classes
-    )
+    sc = scan_teddy.TeddyScanner(am, pf, tabs)
     hay = _corpus(8, 50_000, names, 200)
     n = len(hay)
     hay2d = sc.stage(np.frombuffer(hay, np.uint8))
@@ -158,10 +166,7 @@ def test_device_paths_equal_cpu(cuda, engine: str) -> None:
             np.testing.assert_array_equal(a, b)
     pf = build_prefilter(names)
     mk = [
-        scan_teddy.TeddyScanner(
-            am, pf, t.table, t.classes, t.match_count, t.use_classes
-        )
-        for t in (cpu_t, gpu_t)
+        scan_teddy.TeddyScanner(am, pf, t) for t in (cpu_t, gpu_t)
     ]
     want = mk[0].occurrences(hay)
     got = mk[1].occurrences(hay)
@@ -371,21 +376,114 @@ def test_lane_scan_head_equals_plain(cuda, engine: str, n: int) -> None:
     hay = torch.from_numpy(buf).to(cuda)
     args = (tabs.table, tabs.classes, hay, tabs.match_count, n, L, T, halo,
             tabs.use_classes)
+    kargs = (tabs.lane_table(), tabs.classes, hay, n, L, T, halo,
+             tabs.use_classes)
     pad = torch.full((halo,), PAD_BYTE, dtype=torch.int32, device=cuda)
     _kernels.reset_launches()
-    with_pad = _kernels.lane_scan(*args, head=pad)
-    without = _kernels.lane_scan(*args)
-    for a, b in zip(with_pad, without):
-        assert torch.equal(a, b)
+    with_pad = _kernels.lane_scan(*kargs, head=pad)
+    without = _kernels.lane_scan(*kargs)
+    _assert_lane_scan_equal(with_pad, without)
     assert _kernels.LAUNCHES["lane_scan_head"] == 1
     rng = np.random.default_rng(n)
     tail = np.frombuffer(b"abcdefghabcdefgh", np.uint8)[-halo:].astype(np.int32)
     for head_np in (tail, rng.integers(0, 257, halo).astype(np.int32)):
         head = torch.from_numpy(head_np).to(cuda)
-        got = scan_cuda.scan_lanes(*args, head=head)
+        got = scan_cuda.scan_lanes(*args, head=head, flagged=kargs[0])
         want = scan_cuda._lane_scan_plain(*args, head=head)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+        _assert_lane_scan_equal(got, want)
+
+
+@pytest.mark.parametrize("engine", ["dfa", "classed"])
+def test_lane_scan_sharded_layout_with_head(cuda, engine: str) -> None:
+    """K2 at a rank's sharded layout (8 lanes of 2**16 bytes) with a head:
+    equal to the plain version at the split layout (4,096 lanes of 128
+    bytes, which the CPU tests prove equal to the caller's), to the
+    kernel with one walk a lane (sub-lanes of ``T`` bytes), and on an
+    unaligned view."""
+    names = _names(72, 40) + [b"abcdefghabcdefgh"]
+    am = build_automaton(names)
+    halo = am.max_len - 1
+    L, T = 8, 1 << 16
+    n = L * T - 12_345
+    buf = np.frombuffer(_corpus(73, L * T, names, 3000), np.uint8).copy()
+    tabs = scan_cuda.DeviceTables(am, engine, cuda)
+    hay = torch.from_numpy(buf).to(cuda)
+    head = torch.from_numpy(buf[-halo:].astype(np.int32)).to(cuda)
+    common = (tabs.match_count, n)
+    args = (tabs.table, tabs.classes, hay, *common, L, T, halo,
+            tabs.use_classes)
+    got = scan_cuda.scan_lanes(*args, head=head, flagged=tabs.lane_table())
+    S = 128
+    want = scan_cuda._lane_scan_plain(
+        tabs.table, tabs.classes, hay, *common, L * T // S, S, halo,
+        tabs.use_classes, head,
+    )
+    assert int(want[1].sum()) > 1000
+    _assert_lane_scan_equal(got, want)
+    flagged = tabs.lane_table()
+    _assert_lane_scan_equal(_kernels._lane_scan_at(
+        T, flagged, tabs.classes, hay, n, L, T, halo, tabs.use_classes, head
+    ), want)
+    base = torch.zeros(L * T + 1, dtype=torch.uint8, device=cuda)
+    base[1:] = hay
+    view = base[1:]  # one byte off the allocation's alignment
+    assert view.data_ptr() % 16
+    _assert_lane_scan_equal(
+        _kernels.lane_scan(flagged, tabs.classes, view, n, L, T, halo,
+                           tabs.use_classes, head=head),
+        want,
+    )
+    with pytest.raises(ValueError, match="sub-lanes"):
+        _kernels._lane_scan_at(
+            24, flagged, tabs.classes, hay, n, L, T, halo, tabs.use_classes
+        )
+
+
+@pytest.mark.parametrize("engine", ["dfa", "classed"])
+def test_lane_scan_long_halo(cuda, engine: str) -> None:
+    """K2 with a 601-byte pattern (halo 600, many warm-up rounds a
+    sub-lane) at the single-device and a rank's sharded layout, with and
+    without a head, against the plain version at sub-lanes of 1,024
+    bytes; then backend="sharded" (one rank, K2 with a head) against the
+    host tier."""
+    rng = np.random.default_rng(74)
+    long = bytes(rng.choice(np.frombuffer(b"abcdefgh", np.uint8), 601))
+    names = _names(74, 40) + [long]
+    am = build_automaton(names)
+    halo = am.max_len - 1
+    assert halo == 600
+    tabs = scan_cuda.DeviceTables(am, engine, cuda)
+    for L, T, n in ((128, 1024, 100_001), (8, 1 << 16, (8 << 16) - 777)):
+        buf = bytearray(_corpus(75, L * T, names, n // 100))
+        for off in range(0, n - 601, n // 7):
+            buf[off : off + 601] = long  # whole long matches, seams included
+        hay = torch.from_numpy(np.frombuffer(bytes(buf), np.uint8).copy()).to(
+            cuda
+        )
+        head = torch.from_numpy(
+            rng.integers(0, 257, halo).astype(np.int32)
+        ).to(cuda)
+        for h in (None, head):
+            got = _kernels.lane_scan(tabs.lane_table(), tabs.classes, hay, n,
+                                     L, T, halo, tabs.use_classes, h)
+            want = scan_cuda._lane_scan_plain(
+                tabs.table, tabs.classes, hay, tabs.match_count, n,
+                L * T // 1024, 1024, halo, tabs.use_classes, h,
+            )
+            assert int(want[1].sum()) > 100
+            _assert_lane_scan_equal(got, want)
+    text = _corpus(76, 2 << 20, names, 2000).decode()
+    text = text[:5000] + long.decode() + text[5000:]
+    host = AhoCorasick([nm.decode() for nm in names], backend="native")
+    ac = AhoCorasick([nm.decode() for nm in names], backend="sharded",
+                     device=cuda)
+    ac._teddy_state = "off"
+    _kernels.reset_launches()
+    assert ac.find_matches_as_indexes(text) == host.find_matches_as_indexes(
+        text
+    )
+    assert ac.stats()["last_backend"] == "sharded"
+    assert _kernels.LAUNCHES["lane_scan_head"] > 0
 
 
 def test_shard_bodies_equal_cpu(cuda) -> None:
@@ -420,10 +518,7 @@ def test_shard_bodies_equal_cpu(cuda) -> None:
             assert torch.equal(a, b.cpu())
     # Teddy: each rank reads its right neighbour's head
     scanners = {
-        dev: scan_teddy.TeddyScanner(
-            am, pf, t.table, t.classes, t.match_count, t.use_classes
-        )
-        for dev, t in tabs.items()
+        dev: scan_teddy.TeddyScanner(am, pf, t) for dev, t in tabs.items()
     }
     W = am.max_len + scan_teddy.COARSE - 1
     rows, Hr = sharded.teddy_layout(n, n_dev, W)
@@ -530,12 +625,28 @@ def test_fire_kernel_every_tile_equals_plain(cuda, config) -> None:
         )
         tables = torch.from_numpy(pf.tables).to(cuda)
         want = scan_teddy._fire_mask_plain(tables, hay2d, m, words, passes)
+        packed = scan_teddy.pack_fire_tables(tables, m, words, passes)
         for tile in SWEEP_TILES:
-            got = scan_teddy.fire_mask(tables, hay2d, m, words, passes, tile)
+            got = scan_teddy.fire_mask(tables, hay2d, m, words, passes, tile,
+                                       packed)
             assert torch.equal(got, want), tile
+    # N a tile less or more one, on an aligned buffer and on a view one
+    # byte off (the kernel's byte-copy path)
+    for tile in SWEEP_TILES:
+        for n in (tile - 1, tile + 1):
+            arr = np.frombuffer(_corpus(n, n, names, n // 300 + 1), np.uint8)
+            flat = torch.from_numpy(arr.copy()).to(cuda)
+            base = torch.zeros(n + 1, dtype=torch.uint8, device=cuda)
+            base[1:] = flat
+            want = scan_teddy._fire_mask_plain(tables, flat, m, words, passes)
+            for hay in (flat, base[1:]):
+                got = _kernels.fire(packed, hay, m, words, passes, tile)
+                assert torch.equal(got, want), (tile, n, hay.data_ptr() % 16)
     for bad in (100, 4097, 1 << 17):
         with pytest.raises(ValueError, match="tile"):
-            _kernels.fire(tables, hay2d, m, words, passes, bad)
+            _kernels.fire(packed, hay2d, m, words, passes, bad)
+    with pytest.raises(ValueError, match="packed tables"):
+        scan_teddy.fire_mask(tables, hay2d, m, words, passes)
 
 
 def test_streamed_equals_whole_buffer_five_times(cuda) -> None:
@@ -545,10 +656,7 @@ def test_streamed_equals_whole_buffer_five_times(cuda) -> None:
     am = build_automaton(names)
     hay = np.frombuffer(_corpus(102, 8 << 20, names, 20_000), np.uint8)
     tabs = scan_cuda.DeviceTables(am, "dfa", cuda)
-    sc = scan_teddy.TeddyScanner(
-        am, build_prefilter(names), tabs.table, tabs.classes,
-        tabs.match_count, tabs.use_classes,
-    )
+    sc = scan_teddy.TeddyScanner(am, build_prefilter(names), tabs)
     want = sc.occurrences(hay)
     assert want is not None and len(want[0]) > 10_000
     for _ in range(5):

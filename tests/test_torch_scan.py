@@ -190,7 +190,7 @@ def _scanners(names: list[bytes], engine: str, pf=None):
             pf.m, pf.words, pf.passes, pf.tables, pf.bucket_of,
             pf.est_fire_rate,
         ),
-        pt.table, pt.classes, pt.match_count, pt.use_classes,
+        pt,
     )
     return ref, port
 

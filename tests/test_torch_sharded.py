@@ -150,7 +150,7 @@ def _port_scanner(am, pf, engine: str):
             pf.m, pf.words, pf.passes, pf.tables, pf.bucket_of,
             pf.est_fire_rate,
         ),
-        pt.table, pt.classes, pt.match_count, pt.use_classes,
+        pt,
     )
 
 

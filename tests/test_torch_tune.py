@@ -124,10 +124,7 @@ def test_each_candidate_scans_as_the_reference() -> None:
             ref_am, pf_ref, rt.table, rt.classes, rt.match_count,
             rt.use_classes,
         )
-        ps = port_teddy.TeddyScanner(
-            am, pf_port, pt.table, pt.classes, pt.match_count,
-            pt.use_classes,
-        )
+        ps = port_teddy.TeddyScanner(am, pf_port, pt)
         want = rs.occurrences(arr)
         got = ps.occurrences(arr, hay2d=ps.stage(arr))
         assert (got is None) == (want is None)
