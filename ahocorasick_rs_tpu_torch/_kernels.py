@@ -2,8 +2,10 @@
 
 Each source under ``csrc/`` is compiled by its own ``nvcc`` process (all
 started together) into a shared library with a plain C interface, for
-``sm_90a``.  The libraries land in ``_build/<hash of the sources>/``, so a
-changed source rebuilds and an unchanged one loads at once.  ``ctypes``
+``sm_90a``.  The libraries land in ``_build/<hash>/``, where the hash
+covers the flags and every file of ``csrc/`` (the shared header
+``sublane.cuh`` too, :func:`source_hash`), so a changed file rebuilds and
+an unchanged tree loads at once.  ``ctypes``
 binds them, with ``c_void_p`` for every pointer and for the stream.
 
 The launchers below check device, dtype, shape and contiguity, allocate
@@ -70,16 +72,17 @@ _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _SIGNATURES = {
     "ac_lane_scan": [_P, _I32, _P, _I32, _P, _I64, _P, _I32, _I32, _I32,
-                     _I32, _P, _P, _P],
+                     _I32, _I32, _P, _P, _P],
     "ac_compact": [_P, _I64, _I32, _P, _P, _P, _P, _P],
     "ac_compact_chunk": [],
     "ac_fire": [_P, _I32, _P, _I64, _I32, _I32, _I32, _I32, _P, _P],
     "ac_verify": [_P, _I32, _P, _I32, _P, _I64, _P, _I32, _I32, _P, _P],
-    "ac_stride2_scan": [_P, _I32, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P,
-                        _P],
+    "ac_stride2_scan": [_P, _P, _I32, _P, _P, _I64, _I32, _I32, _I32, _I32,
+                        _I32, _P, _P, _P],
     "ac_sparse_scan": [_P, _I64, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P,
                        _P, _P],
-    "ac_batch_scan": [_P, _I32, _P, _I32, _P, _P, _P, _I32, _I32, _P, _P, _P],
+    "ac_batch_scan": [_P, _I32, _P, _I32, _P, _P, _I32, _I32, _I32, _I32,
+                      _I32, _P, _P, _P],
     "ac_probe_reduce": [_P, _I64, _P, _P],
     "ac_probe_rollrows": [_P, _I64, _P, _P],
 }
@@ -102,17 +105,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def source_hash(csrc: str = _CSRC) -> str:
+    """Hash of the compiler flags and of every file in ``csrc`` (sources
+    and headers, by name and content): the build directory's name."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(csrc)):
+        path = os.path.join(csrc, name)
+        if os.path.isfile(path):
+            with open(path, "rb") as f:
+                h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
 def build() -> dict[str, ctypes.CDLL]:
     """Compile (if needed) and load every kernel library."""
     global _libs, BUILD_SECONDS
     with _lock:
         if _libs is not None:
             return _libs
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in SOURCES:
-            with open(os.path.join(_CSRC, src), "rb") as f:
-                h.update(src.encode() + f.read())
-        out_dir = os.path.join(_BUILD, h.hexdigest()[:16])
+        out_dir = os.path.join(_BUILD, source_hash())
         os.makedirs(out_dir, exist_ok=True)
         t0 = time.perf_counter()
         procs = {}
@@ -176,7 +187,8 @@ def _raise_on(err: int, kernel: str) -> None:
 
 #: bit of the flagged K2 table that carries "the next state has matches"
 FLAG_SHIFT = 24
-#: threads an SM holds at once (Hopper), the sub-lanes K2 aims to give each
+#: threads an SM holds at once (Hopper), the sub-lanes K2, K5 and K6 aim
+#: to give each
 SM_THREADS = 2048
 _SM_COUNT: dict[int, int] = {}
 
@@ -222,7 +234,8 @@ def sm_count(device: torch.device) -> int:
 
 
 def plan_sublanes(L: int, T: int, halo: int, sms: int) -> int:
-    """K2's sub-lane length ``S`` for ``L`` lanes of ``T`` bytes.
+    """The sub-lane length ``S`` of K2 and K6 (and, through
+    :func:`batch_sublanes`, K5) for ``L`` lanes of ``T`` bytes.
 
     ``S`` divides ``T``, is at least ``halo`` (and 1) and, where ``T`` is a
     multiple of 16, a multiple of 16 (the kernel stages 16-byte pieces).
@@ -269,10 +282,12 @@ def lane_scan(
 def _lane_scan_at(
     S: int, flagged: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
     n: int, L: int, T: int, halo: int, use_classes: bool,
-    head: Optional[torch.Tensor] = None,
+    head: Optional[torch.Tensor] = None, carveout: int = -1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`lane_scan` with sub-lanes of ``S`` bytes (``S`` = ``T`` walks
-    each lane in one thread)."""
+    each lane in one thread) and the kernel's shared-memory ``carveout``
+    (the percent of an SM's shared memory it asks for, which leaves the
+    rest of the SM's 256 KB to L1; -1 takes the kernel's own)."""
     dev = hay.device
     if dev.type != "cuda":
         raise ValueError("lane_scan kernel needs CUDA tensors")
@@ -305,7 +320,8 @@ def _lane_scan_at(
         flagged.data_ptr(), flagged.shape[1], classes.data_ptr(),
         int(use_classes), hay.data_ptr(), n,
         None if head is None else head.data_ptr(), L, T, halo, S,
-        states.data_ptr(), mask.data_ptr(), _stream(dev),
+        carveout, states.data_ptr(), mask.data_ptr(),
+        _stream(dev),
     ), "lane_scan")
     LAUNCHES["lane_scan"] += 1
     if head is not None:
@@ -405,34 +421,69 @@ def verify(
 
 
 def stride2_scan(
-    packed2: torch.Tensor, C: int, classes: torch.Tensor, hay: torch.Tensor,
-    n: int, L: int, T: int, halo: int,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K6: pair end states int32 [L*T/2], after-halo states int32 [L] and
-    match mask uint8 [L*T]."""
+    packed2: torch.Tensor, table_classed: torch.Tensor, classes: torch.Tensor,
+    hay: torch.Tensor, n: int, L: int, T: int, halo: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6: states int32 [L*T] and match mask uint8 [L*T] of a uint8
+    haystack of ``L*T`` bytes (the first ``n`` real) walked as ``L`` lanes
+    of ``T`` bytes, two bytes a step through ``packed2`` (int32 ``[states,
+    C*C]``); ``table_classed`` (int32 ``[states, C]``) gives the mid-pair
+    state at a matched first byte.  ``T`` and ``halo`` are even.
+
+    ``states`` holds the state only where ``mask`` is 1, as K2's does.
+    The kernel walks sub-lanes of :func:`plan_sublanes` bytes.
+    """
+    if hay.device.type != "cuda":
+        raise ValueError("stride2_scan kernel needs CUDA tensors")
+    S = plan_sublanes(L, T, halo, sm_count(hay.device))
+    return _stride2_scan_at(
+        S, packed2, table_classed, classes, hay, n, L, T, halo
+    )
+
+
+def _stride2_scan_at(
+    S: int, packed2: torch.Tensor, table_classed: torch.Tensor,
+    classes: torch.Tensor, hay: torch.Tensor, n: int, L: int, T: int,
+    halo: int, carveout: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`stride2_scan` with sub-lanes of ``S`` bytes (``S`` = ``T``
+    walks each lane in one thread) and the kernel's shared-memory
+    ``carveout`` (as :func:`_lane_scan_at`)."""
     dev = hay.device
     if dev.type != "cuda":
         raise ValueError("stride2_scan kernel needs CUDA tensors")
     _check("packed2", packed2, torch.int32, dev, 2)
+    _check("table_classed", table_classed, torch.int32, dev, 2)
     _check("classes", classes, torch.int32, dev, 1)
     _check("hay", hay, torch.uint8, dev, 1)
-    if packed2.shape[1] != C * C or classes.numel() != 257:
-        raise ValueError("stride2_scan: packed2 is not [S, C*C] or bad classes")
-    if hay.numel() != L * T or halo > T or T % 2 or halo % 2:
-        raise ValueError("stride2_scan: bad layout, or T or halo is odd")
+    C = table_classed.shape[1]
+    if (packed2.shape != (table_classed.shape[0], C * C)
+            or classes.numel() != 257):
+        raise ValueError(
+            "stride2_scan: packed2 is not [states, C*C] of table_classed "
+            "[states, C], or bad classes"
+        )
+    if hay.numel() != L * T or halo > T or T % 16 or halo % 2:
+        raise ValueError(
+            "stride2_scan: bad layout, T not a multiple of 16 or odd halo"
+        )
     if not 0 <= n <= L * T:
         raise ValueError(f"stride2_scan: n={n} outside [0, {L * T}]")
-    ends = torch.empty(L * T // 2, dtype=torch.int32, device=dev)
-    after_halo = torch.empty(L, dtype=torch.int32, device=dev)
+    if S % 16 or T % S or S < halo or S < 16:
+        raise ValueError(
+            f"stride2_scan: sub-lanes of {S} bytes do not fit T={T}, "
+            f"halo={halo}"
+        )
+    states = torch.empty(L * T, dtype=torch.int32, device=dev)
     mask = torch.empty(L * T, dtype=torch.uint8, device=dev)
     lib = build()["stride2"]
     _raise_on(lib.ac_stride2_scan(
-        packed2.data_ptr(), C, classes.data_ptr(), hay.data_ptr(), n, L, T,
-        halo, ends.data_ptr(), after_halo.data_ptr(), mask.data_ptr(),
-        _stream(dev),
+        packed2.data_ptr(), table_classed.data_ptr(), C, classes.data_ptr(),
+        hay.data_ptr(), n, L, T, halo, S, carveout,
+        states.data_ptr(), mask.data_ptr(), _stream(dev),
     ), "stride2_scan")
     LAUNCHES["stride2_scan"] += 1
-    return ends, after_halo, mask
+    return states, mask
 
 
 def sparse_scan(
@@ -465,30 +516,72 @@ def sparse_scan(
     return states, mask
 
 
+def batch_sublanes(B: int, T: int, halo: int, sms: int) -> int:
+    """K5's sub-lane length for ``B`` rows of ``T`` bytes: K2's plan with
+    the warm-up a sub-lane can need inside its row (at most ``T``), so a
+    halo of ``T`` or more leaves whole rows."""
+    return plan_sublanes(B, T, min(halo, T), sms)
+
+
 def batch_scan(
-    table: torch.Tensor, classes: torch.Tensor, hay2d: torch.Tensor,
-    lens: torch.Tensor, match_count: torch.Tensor, use_classes: bool,
+    flagged: torch.Tensor, classes: torch.Tensor, hay2d: torch.Tensor,
+    lens: torch.Tensor, halo: int, use_classes: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5: states int32 [B*T] and match mask uint8 [B*T] of a uint8
-    [B, T] document buffer whose row b holds lens[b] real bytes."""
+    [B, T] document buffer whose row b holds lens[b] real bytes; every
+    row starts at the root and reads PAD from lens[b] on.
+
+    ``flagged`` is :func:`flag_table` of the automaton's table and
+    ``halo`` its ``max_len - 1``.  ``states`` holds the state only where
+    ``mask`` is 1.  The kernel walks sub-lanes of :func:`batch_sublanes`
+    bytes, each warmed inside its row; the outputs do not depend on their
+    length.
+    """
+    if hay2d.device.type != "cuda":
+        raise ValueError("batch_scan kernel needs CUDA tensors")
+    B, T = hay2d.shape
+    S = batch_sublanes(B, T, halo, sm_count(hay2d.device))
+    return _batch_scan_at(S, flagged, classes, hay2d, lens, halo, use_classes)
+
+
+def _batch_scan_at(
+    S: int, flagged: torch.Tensor, classes: torch.Tensor,
+    hay2d: torch.Tensor, lens: torch.Tensor, halo: int, use_classes: bool,
+    carveout: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`batch_scan` with sub-lanes of ``S`` bytes (``S`` = ``T``
+    walks each row in one thread) and the kernel's shared-memory
+    ``carveout`` (as :func:`_lane_scan_at`)."""
     dev = hay2d.device
     if dev.type != "cuda":
         raise ValueError("batch_scan kernel needs CUDA tensors")
-    _check("table", table, torch.int32, dev, 2)
+    _check("flagged", flagged, torch.int32, dev, 2)
     _check("classes", classes, torch.int32, dev, 1)
     _check("hay2d", hay2d, torch.uint8, dev, 2)
     _check("lens", lens, torch.int32, dev, 1)
-    _check("match_count", match_count, torch.int32, dev, 1)
     B, T = hay2d.shape
     if classes.numel() != 257 or lens.numel() != B or B * T >= 1 << 31:
         raise ValueError("batch_scan: bad classes, lens or layout")
+    if flagged.shape[0] >= 1 << FLAG_SHIFT:
+        raise ValueError(
+            f"batch_scan: {flagged.shape[0]} states do not fit the flagged "
+            f"table (below 2**{FLAG_SHIFT})"
+        )
+    if T % 16 or halo < 0:
+        raise ValueError(f"batch_scan: T={T} is not a multiple of 16, or "
+                         f"halo={halo} < 0")
+    if S % 16 or T % S or S < min(halo, T - S) or S < 16:
+        raise ValueError(
+            f"batch_scan: sub-lanes of {S} bytes do not fit T={T}, "
+            f"halo={halo}"
+        )
     states = torch.empty(B * T, dtype=torch.int32, device=dev)
     mask = torch.empty(B * T, dtype=torch.uint8, device=dev)
     lib = build()["batch"]
     _raise_on(lib.ac_batch_scan(
-        table.data_ptr(), table.shape[1], classes.data_ptr(),
-        int(use_classes), hay2d.data_ptr(), lens.data_ptr(),
-        match_count.data_ptr(), B, T, states.data_ptr(), mask.data_ptr(),
+        flagged.data_ptr(), flagged.shape[1], classes.data_ptr(),
+        int(use_classes), hay2d.data_ptr(), lens.data_ptr(), B, T, halo, S,
+        carveout, states.data_ptr(), mask.data_ptr(),
         _stream(dev),
     ), "batch_scan")
     LAUNCHES["batch_scan"] += 1

@@ -21,21 +21,17 @@
 //   bytes (S divides T, S >= halo, a multiple of 16), S chosen by the
 //   wrapper so that the card holds about 2,048 walks an SM at any caller
 //   layout (_kernels.py `plan_sublanes`): the sharded scan's 512 lanes of
-//   64-128 KiB become 262,144 sub-lanes, not 4 blocks.  One thread walks
-//   one sub-lane: its `halo` warm-up bytes, then its S bytes.
-//   A block of 256 threads owns 256 neighbouring sub-lanes and stages
-//   them in rounds of C = 16 or 32 bytes a sub-lane into shared memory
-//   with 16-byte `cp.async` copies, double buffered so that round r+1
-//   loads while round r is walked; neighbouring copies fill whole 32-byte
-//   sectors.  The warm-up bytes come first, in ceil(halo / C) rounds of
-//   their own, so the shared footprint (25,616 bytes at most) does not
-//   grow with the halo and any pattern length launches.  Each row is
-//   padded to an odd number of 16-byte units.  The table is the flagged
-//   copy `next | has_match << 24` (_kernels.py `flag_table`), so a step
-//   is one dependent `__ldg`, and the byte classes sit in shared memory.  The
-//   walk overwrites its staged bytes with their mask bytes, and the block
-//   stores each round's mask with 16-byte stores.  `states` is written
-//   only where the mask is 1 (the compaction reads it nowhere else).
+//   64-128 KiB become 262,144 sub-lanes, not 4 blocks.  The staging and
+//   the round loop are sublane.cuh's (shared with K5 and K6): 256
+//   sub-lanes a block, 16- or 32-byte rounds staged with `cp.async`,
+//   warm-up rounds of their own, so the shared footprint (25,616 bytes at
+//   most) does not grow with the halo and any pattern length launches.
+//   The table is the flagged copy `next | has_match << 24` (_kernels.py
+//   `flag_table`), so a step is one dependent `__ldg`, and the byte
+//   classes sit in shared memory.  The mask is stored 16 bytes at a time;
+//   `states` is written only where the mask is 1 (the compaction reads it
+//   nowhere else).  The kernel asks for a small shared-memory carveout, so
+//   the chains' loads hit a larger L1 (kLaneCarveout).
 //   An unaligned haystack view is staged with byte copies.
 //   Head: a shard of the sharded scan (parallel/sharded.py, replacing the
 //   `ppermute` halo of ahocorasick_rs_tpu/parallel/sharded.py
@@ -58,137 +54,77 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sublane.cuh"
+
 namespace {
 
-constexpr int kPad = 256;           // PAD_BYTE: every state goes to the root
+using sublane::kClsBytes;
+using sublane::kPad;
+using sublane::kStateMask;
+using sublane::Plan;
+
 constexpr int kThreads = 256;       // threads per compaction block
 constexpr int kPer = 16;            // mask bytes per thread
 constexpr int kChunk = kThreads * kPer;  // mask bytes per compaction block
 constexpr int kScanThreads = 1024;  // threads of the single offsets block
-constexpr int kSubThreads = 256;    // sub-lanes (threads) per lane-scan block
-constexpr int kClsBytes = 1040;     // 257 int32 classes, rounded up to 16
-constexpr int32_t kStateMask = (1 << 24) - 1;
+// K2's shared-memory carveout (sublane.cuh `set_carveout`): 43 percent
+// asks for 100 KB, three blocks an SM and about 156 KB of L1 for the
+// table's hot rows.  The fastest split in chip_smoke.py's sweep on an
+// H100 at 64 MiB; all 228 KB (eight blocks, 28 KB of L1) took 2.8x as long.
+constexpr int kLaneCarveout = 43;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Stage round r of the block's sub-lanes into `buf`: row j (stride RS)
-// holds the C bytes at offset (r - W) * C of sub-lane j, so the first W
-// rounds are the warm-up bytes before it.  Positions below 0 are not
-// staged (the walk reads the head there).  Commits one cp.async group.
-__device__ __forceinline__ void stage_round(const uint8_t* __restrict__ hay,
-                                            uint8_t* buf, int64_t g0,
-                                            int nsub, int32_t S, int32_t C,
-                                            int32_t W, int32_t RS, int r,
-                                            bool vec) {
-  const int64_t at = static_cast<int64_t>(r - W) * C;
-  if (vec) {
-    const int pieces = C >> 4;
-    for (int i = threadIdx.x; i < nsub * pieces; i += kSubThreads) {
-      const int j = i / pieces, k = i - j * pieces;
-      const int64_t p = (g0 + j) * S + at + 16 * k;
-      if (p >= 0) cp_async16(buf + j * RS + 16 * k, hay + p);
-    }
-  } else {
-    for (int i = threadIdx.x; i < nsub * C; i += kSubThreads) {
-      const int j = i / C, k = i - j * C;
-      const int64_t p = (g0 + j) * S + at + k;
-      if (p >= 0) buf[j * RS + k] = hay[p];
-    }
-  }
-  cp_async_commit();
-}
-
-__global__ void __launch_bounds__(kSubThreads)
+__global__ void __launch_bounds__(sublane::kThreads)
 lane_scan_kernel(const int32_t* __restrict__ ftable, int32_t ncols,
                  const int32_t* __restrict__ classes, int32_t use_classes,
                  const uint8_t* __restrict__ hay, int64_t n,
-                 const int32_t* __restrict__ head, int32_t halo, int64_t G,
-                 int32_t S, int32_t C, int32_t W, int32_t RS, bool vec,
+                 const int32_t* __restrict__ head, int32_t halo, Plan P,
                  int32_t* __restrict__ states, uint8_t* __restrict__ mask) {
   extern __shared__ __align__(16) uint8_t smem[];
   int32_t* cls = reinterpret_cast<int32_t*>(smem);
-  uint8_t* const buf0 = smem + kClsBytes;  // two buffers of kSubThreads rows
-  const int tid = threadIdx.x;
-  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * kSubThreads;
-  const int nsub =
-      G - g0 < kSubThreads ? static_cast<int>(G - g0) : kSubThreads;
-  for (int i = tid; i <= kPad; i += kSubThreads)
+  for (int i = threadIdx.x; i <= kPad; i += sublane::kThreads)
     cls[i] = use_classes ? __ldg(classes + i) : i;
-  const bool live = tid < nsub;
-  const int64_t p0 = (g0 + tid) * S;
-  const int rounds = W + S / C;
-  const int skip = W * C - halo;  // staged warm-up bytes before p0 - halo
+  const int32_t C = P.C;
   int32_t s = 0;
-  stage_round(hay, buf0, g0, nsub, S, C, W, RS, 0, vec);
-  for (int r = 0; r < rounds; ++r) {
-    uint8_t* cur = buf0 + (r & 1) * kSubThreads * RS;
-    __syncthreads();  // every thread is done with the buffer refilled next
-    if (r + 1 < rounds) {
-      stage_round(hay, buf0 + ((r + 1) & 1) * kSubThreads * RS, g0, nsub, S,
-                  C, W, RS, r + 1, vec);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // round r's bytes are visible to every thread
-    uint8_t* row = cur + tid * RS;
-    const int64_t base = p0 + static_cast<int64_t>(r - W) * C;
-    if (live && r < W) {
+  sublane::run_rounds(
+      hay, smem + kClsBytes, mask, sublane::first_sublane(),
+      sublane::live_sublanes(P), P,
+      // positions below 0 are not staged: the walk reads the head there
+      [](int, int32_t, int64_t p) { return p >= 0; },
       // warm-up: the halo bytes before the sub-lane, from the root
-      for (int k = r ? 0 : skip; k < C; ++k) {
-        const int64_t p = base + k;
-        int32_t b;
-        if (p < 0)
-          b = head ? __ldg(head + halo + p) : kPad;
-        else
-          b = p < n ? row[k] : kPad;
-        s = __ldg(ftable + static_cast<int64_t>(s) * ncols + cls[b]) &
-            kStateMask;
-      }
-    } else if (live) {
-      for (int k = 0; k < C; k += 4) {
-        uint32_t* word = reinterpret_cast<uint32_t*>(row + k);
-        const uint32_t bytes = *word;
-        uint32_t out = 0;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int64_t p = base + k + q;
-          const int32_t b =
-              p < n ? static_cast<int32_t>((bytes >> (8 * q)) & 255) : kPad;
-          const int32_t v =
-              __ldg(ftable + static_cast<int64_t>(s) * ncols + cls[b]);
-          s = v & kStateMask;
-          if ((v >> 24) && p < n) {
-            out |= 1u << (8 * q);
-            states[p] = s;
-          }
+      [&](const uint8_t* row, int32_t, int64_t base, int k0) {
+        for (int k = k0; k < C; ++k) {
+          const int64_t p = base + k;
+          int32_t b;
+          if (p < 0)
+            b = head ? __ldg(head + halo + p) : kPad;
+          else
+            b = p < n ? row[k] : kPad;
+          s = __ldg(ftable + static_cast<int64_t>(s) * ncols + cls[b]) &
+              kStateMask;
         }
-        *word = out;  // this round's bytes become their mask bytes
-      }
-    }
-    if (r < W) continue;  // uniform across the block
-    __syncthreads();  // the round's mask is complete in shared memory
-    const int pieces = C >> 4;
-    const int64_t at = static_cast<int64_t>(r - W) * C;
-    for (int i = tid; i < nsub * pieces; i += kSubThreads) {
-      const int j = i / pieces, k = i - j * pieces;
-      *reinterpret_cast<uint4*>(mask + (g0 + j) * S + at + 16 * k) =
-          *reinterpret_cast<const uint4*>(cur + j * RS + 16 * k);
-    }
-  }
+      },
+      [&](uint8_t* row, int32_t, int64_t base) {
+        for (int k = 0; k < C; k += 4) {
+          uint32_t* word = reinterpret_cast<uint32_t*>(row + k);
+          const uint32_t bytes = *word;
+          uint32_t out = 0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int64_t p = base + k + q;
+            const int32_t b =
+                p < n ? static_cast<int32_t>((bytes >> (8 * q)) & 255)
+                      : kPad;
+            const int32_t v =
+                __ldg(ftable + static_cast<int64_t>(s) * ncols + cls[b]);
+            s = v & kStateMask;
+            if ((v >> 24) && p < n) {
+              out |= 1u << (8 * q);
+              states[p] = s;
+            }
+          }
+          *word = out;  // this round's bytes become their mask bytes
+        }
+      });
 }
 
 // Exclusive scan of one int per thread across a block of kThreads.
@@ -307,28 +243,29 @@ extern "C" {
 // `ftable` is the flagged table (next | has_match << 24, states below
 // 2^24); `head` is null or holds `halo` int32 values in [0, 256].  The L*T
 // bytes are walked as sub-lanes of S bytes: S divides T, S >= halo and S
-// is a multiple of 16.  `states` is written only where `mask` is 1.
+// is a multiple of 16.  `carveout` is -1 (K2's own) or a percent.
+// `states` is written only where `mask` is 1.
 int ac_lane_scan(const void* ftable, int32_t ncols, const void* classes,
                  int32_t use_classes, const void* hay, int64_t n,
                  const void* head, int32_t L, int32_t T, int32_t halo,
-                 int32_t S, void* states, void* mask, void* stream) {
-  if (S < 16 || S % 16 || T % S || halo > S || halo < 0 ||
-      (reinterpret_cast<uintptr_t>(mask) & 15))
+                 int32_t S, int32_t carveout, void* states, void* mask,
+                 void* stream) {
+  Plan P;
+  if (T % S || carveout > 100 ||
+      !sublane::make_plan(static_cast<int64_t>(L) * T, S, halo, hay, mask,
+                          &P))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t G = static_cast<int64_t>(L) * (T / S);
-  const int32_t C = S % 32 ? 16 : 32;
-  const int32_t W = (halo + C - 1) / C;  // warm-up rounds
-  const int32_t RS = C == 32 ? 48 : 16;  // an odd count of 16-byte units
-  const int smem = kClsBytes + 2 * kSubThreads * RS;  // at most 25,616
-  const bool vec = (reinterpret_cast<uintptr_t>(hay) & 15) == 0;
-  const int64_t blocks = (G + kSubThreads - 1) / kSubThreads;
-  if (blocks > 0)
-    lane_scan_kernel<<<static_cast<unsigned>(blocks), kSubThreads, smem,
+  const cudaError_t set =
+      sublane::set_carveout(lane_scan_kernel, carveout, kLaneCarveout);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (P.G > 0)
+    lane_scan_kernel<<<sublane::blocks(P), sublane::kThreads,
+                       sublane::shared_bytes(P, kClsBytes),
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(ftable), ncols,
         static_cast<const int32_t*>(classes), use_classes,
         static_cast<const uint8_t*>(hay), n,
-        static_cast<const int32_t*>(head), halo, G, S, C, W, RS, vec,
+        static_cast<const int32_t*>(head), halo, P,
         static_cast<int32_t*>(states), static_cast<uint8_t*>(mask));
   return static_cast<int>(cudaGetLastError());
 }

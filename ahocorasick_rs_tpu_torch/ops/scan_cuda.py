@@ -255,15 +255,27 @@ def _batch_scan_plain(
 def scan_batch(
     table: torch.Tensor, classes: torch.Tensor, hay2d: torch.Tensor,
     lens: torch.Tensor, match_count: torch.Tensor, use_classes: bool,
+    flagged: Optional[torch.Tensor] = None, halo: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5: (states int32 [B*T], match mask uint8 [B*T]) for a uint8
-    ``[B, T]`` buffer whose row ``b`` holds ``lens[b]`` real bytes."""
+    ``[B, T]`` buffer whose row ``b`` holds ``lens[b]`` real bytes.
+
+    The mask is exact everywhere; ``states`` is defined where the mask is
+    1 (the kernel writes it nowhere else; the plain version writes every
+    position).  On a card the kernel needs the flagged table
+    (:meth:`DeviceTables.lane_table`) and the automaton's ``halo``
+    (``max_len - 1``, the warm-up of its in-row sub-lanes); the plain
+    version reads ``table`` and ``match_count``.
+    """
     if hay2d.device.type == "cpu":
         return _batch_scan_plain(
             table, classes, hay2d, lens, match_count, use_classes
         )
+    if flagged is None or halo is None:
+        raise ValueError("scan_batch on a card needs the flagged table and "
+                         "the halo")
     return _kernels.batch_scan(
-        table, classes, hay2d, lens, match_count, use_classes
+        flagged, classes, hay2d, lens, halo, use_classes
     )
 
 
@@ -275,15 +287,20 @@ def _scan_batch_compact(
     match_count: torch.Tensor,
     cap: int,
     use_classes: bool,
+    flagged: Optional[torch.Tensor] = None,
+    halo: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched scan: one document per row, no halo (each starts at root).
 
     ``hay2d`` is uint8 ``[B, T]`` (zero-padded documents), ``lens`` int32
     ``[B]``.  Returns compacted flat (row*T + t) positions, states and the
-    total.
+    total.  ``flagged`` and ``halo`` as :func:`scan_batch`.
     """
     return _compact_states(
-        *scan_batch(table, classes, hay2d, lens, match_count, use_classes),
+        *scan_batch(
+            table, classes, hay2d, lens, match_count, use_classes, flagged,
+            halo,
+        ),
         cap,
     )
 
@@ -333,6 +350,8 @@ def scan_device_batch(
                 tables.match_count,
                 cap,
                 tables.use_classes,
+                tables.lane_table(),
+                tables.halo,
             )
         pos, st, total = _fetch(*outs, cap)
         if total <= cap:
@@ -353,21 +372,26 @@ PACKED2_MAX_BYTES = 256 << 20
 
 
 def _stride2_scan_plain(
-    packed2: torch.Tensor, C: int, classes: torch.Tensor, hay: torch.Tensor,
-    n: int, L: int, T: int, halo: int,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K6: one vectorised step per byte pair."""
+    packed2: torch.Tensor, table_classed: torch.Tensor, classes: torch.Tensor,
+    hay: torch.Tensor, n: int, L: int, T: int, halo: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K6: one vectorised step per byte pair,
+    then the mid-pair state by one gather at the matched first bytes.
+    ``states`` holds the pair's end state at every second byte, the mid
+    state at matched first bytes and -1 at the other first bytes."""
+    C = table_classed.shape[1]
     ext = classes.long()[build_lanes(hay, L, T, halo, n)]  # [L, halo+T]
     cc = ext[:, 0::2] * C + ext[:, 1::2]  # [L, (halo+T)//2]
     hp = halo // 2
     flat = packed2.reshape(-1)
     s = torch.zeros(L, dtype=torch.long, device=hay.device)
-    after_halo = s.to(torch.int32)
+    # state entering each pair, then the state after it
+    prev = torch.empty((L, T // 2), dtype=torch.int32, device=hay.device)
     ends = torch.empty((L, T // 2), dtype=torch.int32, device=hay.device)
     flags = torch.empty((L, T // 2), dtype=torch.int32, device=hay.device)
     for j in range(hp + T // 2):
-        if j == hp:
-            after_halo = s.to(torch.int32)
+        if j >= hp:
+            prev[:, j - hp] = s
         v = flat[s * (C * C) + cc[:, j]]
         s = (v >> 2).long()
         if j >= hp:
@@ -377,18 +401,32 @@ def _stride2_scan_plain(
     # interleave (first, second) byte flags back to per-byte order
     mask = torch.stack([flags & 1, flags >> 1], dim=-1).reshape(L * T)
     mask = (mask > 0) & (idx < n)
-    return ends.reshape(-1), after_halo, mask.to(torch.uint8)
+    states = torch.stack(
+        [torch.full_like(ends, -1), ends], dim=-1
+    ).reshape(L * T)
+    first = mask[0::2].nonzero().reshape(-1)  # pairs whose first byte hit
+    states[2 * first] = table_classed[
+        prev.reshape(-1)[first].long(), ext[:, halo::2].reshape(-1)[first]
+    ]
+    return states, mask.to(torch.uint8)
 
 
 def stride2_scan(
-    packed2: torch.Tensor, C: int, classes: torch.Tensor, hay: torch.Tensor,
-    n: int, L: int, T: int, halo: int,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K6: (state after each pair int32 [L*T/2], state after the halo
-    int32 [L], match mask uint8 [L*T]); ``T`` and ``halo`` even."""
+    packed2: torch.Tensor, table_classed: torch.Tensor, classes: torch.Tensor,
+    hay: torch.Tensor, n: int, L: int, T: int, halo: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6: (states int32 [L*T], match mask uint8 [L*T]) through the pair
+    table; ``T`` and ``halo`` even.  K2's contract: the mask is exact
+    everywhere, ``states`` defined where it is 1 (the state after that
+    byte: a pair's end state, or at a first byte the mid state rebuilt
+    from ``table_classed``)."""
     if hay.device.type == "cpu":
-        return _stride2_scan_plain(packed2, C, classes, hay, n, L, T, halo)
-    return _kernels.stride2_scan(packed2, C, classes, hay, n, L, T, halo)
+        return _stride2_scan_plain(
+            packed2, table_classed, classes, hay, n, L, T, halo
+        )
+    return _kernels.stride2_scan(
+        packed2, table_classed, classes, hay, n, L, T, halo
+    )
 
 
 def _scan_compact2(
@@ -407,29 +445,14 @@ def _scan_compact2(
     ``packed2[s, c1*C+c2]`` carries the two-byte-composed next state plus
     per-pair match flags (``Automaton.packed2``), so the scan does half the
     loads of the plain scan and needs no ``match_count`` test over the
-    state stream.  The state at a matched first byte of a pair is
-    recomputed here, at the O(matches) compacted positions only, from the
-    state entering the pair: the previous pair's end state, or the lane's
-    state after the halo.  ``halo`` and ``T`` must be even.
+    state stream.  The state at a matched first byte of a pair is rebuilt
+    by K6 at the match only, from the state entering the pair.  ``halo``
+    and ``T`` must be even.
     """
-    C = table_classed.shape[1]
-    ends, after_halo, mask = stride2_scan(
-        packed2, C, classes, hay, n, L, T, halo
+    return _compact_states(
+        *stride2_scan(packed2, table_classed, classes, hay, n, L, T, halo),
+        cap,
     )
-    positions, total = compact_sparse(mask, cap)
-    pos_safe = positions.clamp(min=0).long()
-    pair = pos_safe >> 1
-    half = T // 2
-    prev = torch.where(
-        pair % half == 0,
-        after_halo[pair // half],
-        ends[(pair - 1).clamp(min=0)],
-    )
-    first_cls = classes[hay[pair * 2].long()].long()
-    mid = table_classed[prev.long(), first_cls]
-    states_at = torch.where((pos_safe & 1) == 1, ends[pair], mid)
-    states_at = torch.where(positions >= 0, states_at, -1)
-    return positions, states_at, total
 
 
 def _sparse_scan_plain(
@@ -537,6 +560,8 @@ class DeviceTables:
             self.use_classes = False
         self.classes = self._upload(np.asarray(classes, dtype=np.int32))
         self.match_count = self._upload(am.match_count)
+        #: bytes before a position that decide its state (K5's warm-up)
+        self.halo = max(am.max_len - 1, 0)
         self._am = am
         # stride-2 tables, used by either dense engine when they fit (the
         # pair table halves the loads of the load-bound scan); built on the

@@ -420,7 +420,7 @@ def shard_batch_body(
     pos, st, total = _compact_states(
         *scan_batch(
             tables.table, tables.classes, hay2d, lens, tables.match_count,
-            tables.use_classes,
+            tables.use_classes, tables.lane_table(), tables.halo,
         ),
         cap,
     )

@@ -7,9 +7,11 @@ Run from the repository root, with one CUDA card visible:
 
 It builds the CUDA kernels from ``ahocorasick_rs_tpu_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version at the main
-path's shapes (exact equality; all values are integers; K2's states only
-where its mask is 1, also at the sharded ranks' layouts against its own
-single-device output) and times both.
+path's shapes (exact equality; all values are integers; K2's, K5's and
+K6's states only where their masks are 1, K2 also at the sharded ranks'
+layouts against its own single-device output, K5 at the LONG and SHORT
+batches and a rank's row block, K6 also against K2 at its layout and on
+the bailout's match-dense input) and times both.
 Then it drives every device path through the public API and checks every
 answer against the port's own host tier: ``find_matches_as_indexes`` on a
 64 MiB corpus with 1,000 name patterns (the upstream benchmark's LONG
@@ -70,6 +72,12 @@ TUNE_MIB = 16
 STREAM_SEG_MIB = 16
 #: rows of the layout probes' 4 MiB arrays (the reference's 32 blocks)
 PROBE_SMALL_ROWS = 32 * 1024
+#: shared-memory carveouts the lane scans (K2, K5, K6) are also timed at:
+#: percents of an SM's 228 KB of shared memory at its supported splits
+#: with L1 (64, 100, 132, 164, 196 and 228 KB of shared memory)
+CARVEOUTS = (28, 43, 57, 71, 85, 100)
+#: bytes of 'a' the match-dense bailout scans (and K6 is checked on)
+BAILOUT_MIB = 16
 #: K1 prefilter shapes (m, words, passes) checked besides the names' own
 K1_CONFIGS = ((8, 8, 2), (3, 1, 1))
 
@@ -165,6 +173,13 @@ def lane_scan_err(got, want) -> int:
     (st, mask), (st_p, mask_p) = got, want
     hit = mask_p.bool()
     return max(max_abs_err(mask, mask_p), max_abs_err(st[hit], st_p[hit]))
+
+
+def by_carveout(kernel, S: int, args: tuple) -> dict:
+    """A lane scan's time (``_kernels._*_at`` with sub-lanes of ``S``
+    bytes) at each of :data:`CARVEOUTS`; the kernel's own is its ``ms``."""
+    return {c: cuda_ms(lambda: kernel(S, *args, carveout=c), 5)
+            for c in CARVEOUTS}
 
 
 def bound_ms(nbytes: float) -> float:
@@ -414,6 +429,7 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
         # one sub-lane: S + halo dependent loads, this design's floor
         "sub_chain_ms": cuda_ms(
             lambda: _kernels._lane_scan_at(S, *one_sub), 20),
+        "ms_by_carveout": by_carveout(_kernels._lane_scan_at, S, kk2_args),
     }
 
     # K3 on the dense path's shape: the lane scan's match mask
@@ -437,73 +453,185 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
 
     # K6: stride-2 scan at the dense path's layout, classed tables (the
     # dense phase runs ContiguousNFA; its 19.6 MiB pair table fits the
-    # 64 MiB budget), halo rounded up to even
+    # 64 MiB budget), halo rounded up to even.  K2's contract: the mask
+    # bit-equal and the states equal where it is 1, against the plain
+    # version and against K2 at the same layout and halo
     require(cls.ensure_packed2(), "the pair table of the names does not fit")
     halo2 = halo + (halo & 1)
     L2, T2 = scan_cuda.choose_layout(n, halo2)
     buf2 = np.zeros(L2 * T2, dtype=np.uint8)
     buf2[:n] = corpus
     hay2 = torch.from_numpy(buf2).to(dev)
-    C = cls.table_classed.shape[1]
-    k6_args = (cls.packed2, C, cls.classes2, hay2, n, L2, T2, halo2)
-    got = _kernels.stride2_scan(*k6_args)
-    want = scan_cuda._stride2_scan_plain(*k6_args)
-    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    k6_args = (cls.packed2, cls.table_classed, cls.classes2, hay2, n, L2, T2,
+               halo2)
+    got6 = _kernels.stride2_scan(*k6_args)
+    err = lane_scan_err(got6, scan_cuda._stride2_scan_plain(*k6_args))
     require(err == 0, f"K6 stride-2 scan differs from its plain version "
                       f"({err})")
-    one_lane2 = (cls.packed2, C, cls.classes2, hay2[:T2].contiguous(), T2,
-                 1, T2, halo2)
+    k2_same = _kernels.lane_scan(flagged, cls.classes, hay2, n, L2, T2, halo2,
+                                 cls.use_classes)
+    require(lane_scan_err(got6, k2_same) == 0,
+            "K6 differs from K2 at the same layout and halo")
+    hits6 = int(got6[1].sum(dtype=torch.int64))
+    # the bailout input: 64 nested patterns over 16 MiB of 'a' (DFA, the
+    # bailout phase's engine), a match at almost every position
+    dense_am = build_automaton([b"a" * k for k in range(1, 65)])
+    bail = scan_cuda.DeviceTables(dense_am, "dfa", dev)
+    require(bail.ensure_packed2(), "the bailout's pair table does not fit")
+    nb = BAILOUT_MIB << 20
+    halo_b = dense_am.max_len - 1
+    halo_b += halo_b & 1
+    Lb, Tb = scan_cuda.choose_layout(nb, halo_b)
+    hay_b = torch.full((Lb * Tb,), ord("a"), dtype=torch.uint8, device=dev)
+    b6_args = (bail.packed2, bail.table_classed, bail.classes2, hay_b, nb, Lb,
+               Tb, halo_b)
+    got_b = _kernels.stride2_scan(*b6_args)
+    bail_err = lane_scan_err(got_b, scan_cuda._stride2_scan_plain(*b6_args))
+    require(bail_err == 0, f"K6 on the bailout input differs from its plain "
+                           f"version ({bail_err})")
+    bail_hits = int(got_b[1].sum(dtype=torch.int64))
+    require(bail_hits > nb * 9 // 10,
+            f"the bailout input matched at only {bail_hits} positions")
+    err = max(err, bail_err)
+    S2 = _kernels.plan_sublanes(L2, T2, halo2, _kernels.sm_count(dev))
+    one_lane2 = (cls.packed2, cls.table_classed, cls.classes2,
+                 hay2[:T2].contiguous(), T2, 1, T2, halo2)
+    # two sub-lanes of one lane: the second walks its halo and its S bytes
+    two_sub2 = (cls.packed2, cls.table_classed, cls.classes2,
+                hay2[: 2 * S2].contiguous(), 2 * S2, 1, 2 * S2, halo2)
+
+    def k6_bound(nbytes: int, hits: int, t) -> float:
+        # haystack read, mask written, a state at each match, the pair
+        # table, the classed table and the classes read
+        return bound_ms(2 * nbytes + 4 * hits + 4 * (
+            t.packed2.numel() + t.table_classed.numel() + 257))
+
     out["stride2_scan"] = {
-        "shape": f"L={L2} T={T2} halo={halo2}, packed2 int32 "
+        "shape": f"L={L2} T={T2} halo={halo2} S={S2}, packed2 int32 "
                  f"{list(cls.packed2.shape)}",
         "max_abs_err": err,
         "ms": cuda_ms(lambda: _kernels.stride2_scan(*k6_args), 5),
         "plain_ms": cuda_ms(
             lambda: scan_cuda._stride2_scan_plain(*k6_args), 1
         ),
-        # haystack, pair table and classes read; int32 pair end states,
-        # the lanes' after-halo states and the uint8 mask written
-        "bound_ms": bound_ms(
-            L2 * T2 * (1 + 2 + 1) + 4 * (cls.packed2.numel() + 257 + L2)
-        ),
+        "bound_ms": k6_bound(L2 * T2, hits6, cls),
         "bound_by": "bytes",
         "library_ms": None,
-        # one lane alone: (T + halo) / 2 dependent pair-table loads
+        "matches": hits6,
+        "k2_same_layout_ms": cuda_ms(
+            lambda: _kernels.lane_scan(flagged, cls.classes, hay2, n, L2, T2,
+                                       halo2, cls.use_classes), 5),
+        "bailout": {
+            "shape": f"L={Lb} T={Tb} halo={halo_b}, packed2 int32 "
+                     f"{list(bail.packed2.shape)}",
+            "matches": bail_hits,
+            "ms": cuda_ms(lambda: _kernels.stride2_scan(*b6_args), 5),
+            "bound_ms": k6_bound(Lb * Tb, bail_hits, bail),
+        },
+        # one lane walked by one thread: (T + halo) / 2 dependent pair
+        # loads, the floor of a walk per caller lane
         "dep_chain_ms": cuda_ms(
-            lambda: _kernels.stride2_scan(*one_lane2), 20
+            lambda: _kernels._stride2_scan_at(T2, *one_lane2), 20
         ),
+        # one sub-lane: (S + halo) / 2 dependent pair loads
+        "sub_chain_ms": cuda_ms(
+            lambda: _kernels._stride2_scan_at(S2, *two_sub2), 20
+        ),
+        "ms_by_carveout": by_carveout(_kernels._stride2_scan_at, S2,
+                                      k6_args),
     }
 
     # K5: the batch kernel at the LONG batch's layout, DFA tables (the
-    # batch phases run the default DFA engine)
-    buf5, lens5 = batch_layout([d.encode() for d in long_batch])
-    hay5 = torch.from_numpy(buf5).to(dev)
-    lens5_d = torch.from_numpy(lens5).to(dev)
-    k5_args = (dfa.table, dfa.classes, hay5, lens5_d, dfa.match_count,
-               dfa.use_classes)
-    got = _kernels.batch_scan(*k5_args)
-    want = scan_cuda._batch_scan_plain(*k5_args)
-    err = max(max_abs_err(a, b) for a, b in zip(got, want))
-    require(err == 0, f"K5 batch scan differs from its plain version ({err})")
-    one_row = (dfa.table, dfa.classes, hay5[:1].contiguous(),
-               lens5_d[:1].contiguous(), dfa.match_count, dfa.use_classes)
-    B5, T5 = buf5.shape
+    # batch phases run the default DFA engine), then at the SHORT batch's
+    # and at one sharded rank's row block (a view into the LONG buffer);
+    # K2's contract at each
+    def k5_case(t, docs: list[bytes], rows=None) -> dict:
+        buf, lens = batch_layout(docs)
+        hay_d = torch.from_numpy(buf).to(dev)
+        lens_d = torch.from_numpy(lens).to(dev)
+        if rows is not None:
+            hay_d, lens_d = hay_d[:rows], lens_d[:rows]
+        plain = (t.table, t.classes, hay_d, lens_d, t.match_count,
+                 t.use_classes)
+        kern = (t.lane_table(), t.classes, hay_d, lens_d, t.halo,
+                t.use_classes)
+        got = _kernels.batch_scan(*kern)
+        case_err = lane_scan_err(got, scan_cuda._batch_scan_plain(*plain))
+        B, T = hay_d.shape
+        hits = int(got[1].sum(dtype=torch.int64))
+        return {
+            "B": B, "T": T, "halo": t.halo, "S": _kernels.batch_sublanes(
+                B, T, t.halo, _kernels.sm_count(dev)),
+            "max_abs_err": case_err, "matches": hits,
+            "real_bytes": int(lens_d.sum(dtype=torch.int64)),
+            "plain": plain, "kern": kern, "got": got,
+        }
+
+    def k5_bound(c: dict, t) -> float:
+        # the real bytes read, the mask written, a state at each match,
+        # lens, the flagged table and the classes read
+        return bound_ms(c["real_bytes"] + c["B"] * c["T"] + 4 * c["matches"]
+                        + 4 * c["B"] + 4 * (t.lane_table().numel() + 257))
+
+    long_b = [d.encode() for d in long_batch]
+    short_patterns, short_batch = short_case()
+    short_am = build_automaton([p.encode() for p in short_patterns])
+    short_t = scan_cuda.DeviceTables(short_am, "dfa", dev)
+    cases = {
+        "long": (dfa, k5_case(dfa, long_b)),
+        "short": (short_t, k5_case(short_t, [d.encode() for d in short_batch])),
+    }
+    Bb_r, T_r = sharded.batch_layout([len(d) for d in long_b], SHARD_RANKS)
+    cases["rank"] = (dfa, k5_case(dfa, long_b, rows=Bb_r // SHARD_RANKS))
+    long_c = cases["long"][1]
+    rank_c = cases["rank"][1]
+    # the rank's rows equal the same rows of the whole-buffer launch
+    rows_n = rank_c["B"] * rank_c["T"]
+    hit = long_c["got"][1][:rows_n].bool()
+    require(torch.equal(rank_c["got"][1], long_c["got"][1][:rows_n]) and
+            torch.equal(rank_c["got"][0][hit], long_c["got"][0][:rows_n][hit]),
+            "K5 on a rank's row block differs from the whole batch")
+    layouts5 = {}
+    for key, (t, c) in cases.items():
+        require(c["max_abs_err"] == 0, f"K5 batch scan ({key}) differs from "
+                                       f"its plain version "
+                                       f"({c['max_abs_err']})")
+        kern = c["kern"]
+        layouts5[key] = {
+            "B": c["B"], "T": c["T"], "halo": c["halo"], "S": c["S"],
+            "matches": c["matches"], "real_bytes": c["real_bytes"],
+            "ms": cuda_ms(lambda: _kernels.batch_scan(*kern), 5),
+            "bound_ms": k5_bound(c, t),
+        }
+    B5, T5, S5 = long_c["B"], long_c["T"], long_c["S"]
+    hay5, lens5_d = long_c["kern"][2], long_c["kern"][3]
+    one_row = (dfa.lane_table(), dfa.classes, hay5[:1].contiguous(),
+               lens5_d[:1].contiguous(), dfa.halo, dfa.use_classes)
+    # two sub-lanes of one full row: the second walks its halo and S bytes
+    two_sub5 = (dfa.lane_table(), dfa.classes, hay5[:1, : 2 * S5].contiguous(),
+                torch.full((1,), 2 * S5, dtype=torch.int32, device=dev),
+                dfa.halo, dfa.use_classes)
     out["batch_scan"] = {
         "shape": f"hay2d uint8 [{B5}, {T5}] ({len(long_batch)} real rows), "
-                 f"table int32 {list(dfa.table.shape)}",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: _kernels.batch_scan(*k5_args), 5),
-        "plain_ms": cuda_ms(lambda: scan_cuda._batch_scan_plain(*k5_args), 1),
-        # buffer, lens, table and match counts read; int32 states and the
-        # uint8 mask written
-        "bound_ms": bound_ms(
-            B5 * T5 * (1 + 4 + 1) + 4 * B5
-            + 4 * (dfa.table.numel() + am.num_states)
-        ),
+                 f"halo={dfa.halo} S={S5}, table int32 "
+                 f"{list(dfa.table.shape)} (flagged)",
+        "max_abs_err": max(c["max_abs_err"] for _, c in cases.values()),
+        "ms": layouts5["long"]["ms"],
+        "plain_ms": cuda_ms(
+            lambda: scan_cuda._batch_scan_plain(*long_c["plain"]), 1),
+        "bound_ms": layouts5["long"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        # one row alone: T dependent table loads
-        "dep_chain_ms": cuda_ms(lambda: _kernels.batch_scan(*one_row), 20),
+        "matches": long_c["matches"],
+        "layouts": layouts5,
+        # one row alone, walked by one thread: its lens[0] dependent loads
+        "dep_chain_ms": cuda_ms(
+            lambda: _kernels._batch_scan_at(T5, *one_row), 20),
+        # one sub-lane: halo + S dependent loads
+        "sub_chain_ms": cuda_ms(
+            lambda: _kernels._batch_scan_at(S5, *two_sub5), 20),
+        "ms_by_carveout": by_carveout(_kernels._batch_scan_at, S5,
+                                      long_c["kern"]),
     }
 
     # K7: the sparse CSR scan at the sparse path's layout (K2's: the same
@@ -1021,7 +1149,7 @@ def phase_bailout(port) -> dict:
     from ahocorasick_rs_tpu_torch.ops.resolve import MatchDenseError
 
     pats = ["a" * k for k in range(1, 65)]
-    text = "a" * (16 << 20)
+    text = "a" * (BAILOUT_MIB << 20)
     kind = port.MatchKind.LeftmostLongest
     ac = port.AhoCorasick(pats, matchkind=kind, backend="device")
     _kernels.reset_launches()
@@ -1415,7 +1543,8 @@ def main() -> int:
             "library_ms": k["library_ms"], "equal": k["max_abs_err"] == 0,
             "shape": k["shape"],
         })
-        for extra in ("dep_chain_ms", "sub_chain_ms", "layouts", "configs"):
+        for extra in ("dep_chain_ms", "sub_chain_ms", "layouts", "configs",
+                      "bailout", "k2_same_layout_ms", "ms_by_carveout"):
             if extra in k:
                 rows[-1][extra] = k[extra]
         if key == "fire":

@@ -232,12 +232,11 @@ def test_stride2_kernel_equals_plain(
     buf = np.zeros(L * T, dtype=np.uint8)
     buf[:n] = np.frombuffer(_corpus(n, n + 16, names, n // 50), np.uint8)[:n]
     hay = torch.from_numpy(buf).to(cuda)
-    C = tabs.table_classed.shape[1]
-    args = (tabs.packed2, C, tabs.classes2, hay, n, L, T, halo)
+    args = (tabs.packed2, tabs.table_classed, tabs.classes2, hay, n, L, T,
+            halo)
     got = scan_cuda.stride2_scan(*args)
     want = scan_cuda._stride2_scan_plain(*args)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    _assert_lane_scan_equal(got, want)
     cpu = scan_cuda._scan_compact2(
         tabs.packed2.cpu(), tabs.table_classed.cpu(), tabs.classes2.cpu(),
         hay.cpu(), n, L, T, halo, 4096,
@@ -296,9 +295,8 @@ def test_batch_kernel_equals_plain(cuda, engine: str, B: int) -> None:
     args = (tabs.table, tabs.classes, torch.from_numpy(buf).to(cuda),
             torch.from_numpy(lens).to(cuda), tabs.match_count,
             tabs.use_classes)
-    st, mask = scan_cuda.scan_batch(*args)
-    st_p, mask_p = scan_cuda._batch_scan_plain(*args)
-    assert torch.equal(st, st_p) and torch.equal(mask, mask_p)
+    got = scan_cuda.scan_batch(*args, tabs.lane_table(), tabs.halo)
+    _assert_lane_scan_equal(got, scan_cuda._batch_scan_plain(*args))
     want = scan_cuda.scan_device_batch(
         am, docs, scan_cuda.DeviceTables(am, engine, "cpu")
     )
@@ -306,6 +304,211 @@ def test_batch_kernel_equals_plain(cuda, engine: str, B: int) -> None:
     assert got[2] == want[2]
     for a, b in zip(got[:2], want[:2]):
         np.testing.assert_array_equal(a, b)
+
+
+def _sublane_lengths(T: int, halo: int, batch: bool) -> list[int]:
+    """Every sub-lane length the K5 (``batch``) or K2/K6 wrapper takes."""
+    return [
+        S for S in range(16, T + 1, 16)
+        if T % S == 0 and S >= (min(halo, T - S) if batch else halo)
+    ]
+
+
+def _byte_off(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` viewed one byte off its allocation's alignment."""
+    base = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+    base[1:] = x.reshape(-1)
+    view = base[1:].view(x.shape)
+    assert view.data_ptr() % 16
+    return view
+
+
+#: (T, names) of the K5 layouts: T = 16, halo 0 (one-byte names), halo
+#: T - 1, a halo past T, odd and even halos over longer rows
+BATCH_CASES = {
+    "T16-halo0": (16, [b"a", b"c", b"h"]),
+    "T16-halo15": (16, _names(42, 30) + [b"abcdefghabcdefgh"]),
+    "T64-halo63": (64, _names(43, 30) + [b"abcdefgh" * 8]),
+    "T64-halo80": (64, _names(44, 30) + [b"abcdefgh" * 10 + b"a"]),
+    "T256-halo15": (256, _names(45, 30) + [b"abcdefghabcdefgh"]),
+    "T1024-halo14": (1024, _names(46, 30) + [b"abcdefghabcdefg"]),
+}
+
+
+@pytest.mark.parametrize("engine", ["dfa", "classed"])
+@pytest.mark.parametrize("case", sorted(BATCH_CASES))
+def test_batch_kernel_every_sublane(cuda, engine: str, case: str) -> None:
+    """K5 at every sub-lane length its wrapper takes for the row length,
+    with lens 0, 1, odd and T and padding bytes that are not zero, equal
+    to the plain version (mask bit-equal, states at the mask), also on a
+    buffer one byte off its alignment (the kernel's byte-copy path)."""
+    T, names = BATCH_CASES[case]
+    am = build_automaton(names)
+    tabs = scan_cuda.DeviceTables(am, engine, cuda)
+    B = 45
+    rng = np.random.default_rng(T + len(names))
+    buf = np.frombuffer(_corpus(T, B * T, names, B * T // 40 + 1),
+                        np.uint8).reshape(B, T).copy()
+    # in row b the longest name ends at the b-th multiple of 16 (cycling):
+    # a match whose first byte is the last a sub-lane's warm-up reaches
+    longest = np.frombuffer(max(names, key=len), np.uint8)
+    for b in range(B):
+        end = 16 * (b % (T // 16))
+        if end + 1 >= len(longest):
+            buf[b, end + 1 - len(longest) : end + 1] = longest
+    lens = rng.integers(0, T + 1, B).astype(np.int32)
+    lens[4::2] = T
+    lens[:4] = (0, 1, T, T - 1)  # T - 1 is odd
+    hay = torch.from_numpy(buf).to(cuda)
+    lens_d = torch.from_numpy(lens).to(cuda)
+    want = scan_cuda._batch_scan_plain(
+        tabs.table, tabs.classes, hay, lens_d, tabs.match_count,
+        tabs.use_classes,
+    )
+    assert int(want[1].sum()) > 0
+    kern = (tabs.lane_table(), tabs.classes, hay, lens_d, tabs.halo,
+            tabs.use_classes)
+    for S in _sublane_lengths(T, tabs.halo, batch=True):
+        _assert_lane_scan_equal(_kernels._batch_scan_at(S, *kern), want)
+    _assert_lane_scan_equal(_kernels.batch_scan(*kern), want)
+    view = (kern[0], kern[1], _byte_off(hay), *kern[3:])
+    _assert_lane_scan_equal(_kernels.batch_scan(*view), want)
+    with pytest.raises(ValueError, match="sub-lanes"):
+        _kernels._batch_scan_at(24, *kern)
+
+
+def test_batch_kernel_sharded_row_block(cuda) -> None:
+    """K5 over one rank's row block (a view into the whole buffer, at an
+    offset and one byte off) equals the same rows of the whole launch."""
+    names = _names(47, 40) + [b"abcdefghabcdefgh"]
+    am = build_automaton(names)
+    tabs = scan_cuda.DeviceTables(am, "dfa", cuda)
+    B, T = 4096, 256
+    rng = np.random.default_rng(47)
+    buf = np.frombuffer(_corpus(48, B * T, names, 4000), np.uint8).reshape(
+        B, T).copy()
+    lens = rng.integers(0, T + 1, B).astype(np.int32)
+    hay = torch.from_numpy(buf).to(cuda)
+    lens_d = torch.from_numpy(lens).to(cuda)
+    flagged = tabs.lane_table()
+    st, mask = _kernels.batch_scan(flagged, tabs.classes, hay, lens_d,
+                                   tabs.halo, tabs.use_classes)
+    lo, hi = B // 4, B // 2
+    rows = slice(lo * T, hi * T)
+    for block in (hay[lo:hi], _byte_off(hay[lo:hi])):
+        got = _kernels.batch_scan(flagged, tabs.classes, block,
+                                  lens_d[lo:hi], tabs.halo, tabs.use_classes)
+        _assert_lane_scan_equal(got, (st[rows], mask[rows]))
+    assert int(mask[rows].sum()) > 100
+
+
+@pytest.mark.parametrize("engine", ["dfa", "classed"])
+@pytest.mark.parametrize("halo_kind", sorted(HALO_NAMES))
+def test_stride2_kernel_every_sublane_and_k2(
+    cuda, engine: str, halo_kind: str
+) -> None:
+    """K6 at every sub-lane length its wrapper takes, equal to its plain
+    version and to K2 at the same layout and even halo (mask bit-equal,
+    states at the mask), also on a haystack one byte off its alignment;
+    n odd."""
+    names = HALO_NAMES[halo_kind]
+    am = build_automaton(names)
+    tabs = scan_cuda.DeviceTables(am, engine, cuda)
+    assert tabs.ensure_packed2()
+    halo = am.max_len - 1
+    halo += halo & 1
+    L, T = 64, 512
+    n = L * T - 777
+    buf = np.frombuffer(_corpus(91, L * T, names, 600), np.uint8).copy()
+    # the longest name ending at sub-lane starts (multiples of 16) and one
+    # byte after them: matches whose first bytes the warm-up must reach
+    longest = np.frombuffer(max(names, key=len), np.uint8)
+    for m in range(1, L * T // 48):
+        end = 48 * m + (m % 2)
+        buf[end + 1 - len(longest) : end + 1] = longest
+    hay = torch.from_numpy(buf).to(cuda)
+    args = (tabs.packed2, tabs.table_classed, tabs.classes2, hay, n, L, T,
+            halo)
+    want = scan_cuda._stride2_scan_plain(*args)
+    assert int(want[1].sum()) > 100
+    for S in _sublane_lengths(T, halo, batch=False):
+        _assert_lane_scan_equal(_kernels._stride2_scan_at(S, *args), want)
+    got = _kernels.stride2_scan(*args)
+    _assert_lane_scan_equal(got, want)
+    _assert_lane_scan_equal(
+        _kernels.lane_scan(tabs.lane_table(), tabs.classes, hay, n, L, T,
+                           halo, tabs.use_classes),
+        got,
+    )
+    view = (*args[:3], _byte_off(hay), *args[4:])
+    _assert_lane_scan_equal(_kernels.stride2_scan(*view), want)
+    with pytest.raises(ValueError, match="sub-lanes"):
+        _kernels._stride2_scan_at(24, *args)
+
+
+def test_stride2_kernel_match_dense(cuda) -> None:
+    """K6 where almost every byte matches (nested patterns over 'a'): a
+    state at nearly every position, equal to the plain version and K2,
+    and scan_device still raises MatchDenseError."""
+    from ahocorasick_rs_tpu_torch.ops.resolve import MatchDenseError
+
+    am = build_automaton([b"a" * k for k in range(1, 21)])
+    tabs = scan_cuda.DeviceTables(am, "dfa", cuda)
+    assert tabs.ensure_packed2()
+    halo = am.max_len - 1 + ((am.max_len - 1) & 1)
+    L, T = 256, 512
+    n = L * T - 5
+    hay = torch.full((L * T,), ord("a"), dtype=torch.uint8, device=cuda)
+    args = (tabs.packed2, tabs.table_classed, tabs.classes2, hay, n, L, T,
+            halo)
+    got = _kernels.stride2_scan(*args)
+    _assert_lane_scan_equal(got, scan_cuda._stride2_scan_plain(*args))
+    _assert_lane_scan_equal(
+        _kernels.lane_scan(tabs.lane_table(), tabs.classes, hay, n, L, T,
+                           halo, tabs.use_classes),
+        got,
+    )
+    assert int(got[1].sum()) == n
+    text = np.full(8 << 20, ord("a"), np.uint8)
+    with pytest.raises(MatchDenseError):
+        scan_cuda.scan_device(am, text, tabs)
+
+
+def test_lane_scans_every_carveout(cuda) -> None:
+    """K2, K5 and K6 at each shared-memory carveout (the L1 split changes
+    only their speed) equal their own default launch; a carveout past
+    100 percent is refused."""
+    names = _names(49, 40) + [b"abcdefghabcdefgh"]
+    am = build_automaton(names)
+    tabs = scan_cuda.DeviceTables(am, "classed", cuda)
+    assert tabs.ensure_packed2()
+    halo = am.max_len - 1 + ((am.max_len - 1) & 1)
+    L, T = 64, 1024
+    n = L * T - 99
+    hay = torch.from_numpy(
+        np.frombuffer(_corpus(50, L * T, names, 800), np.uint8).copy()
+    ).to(cuda)
+    lens = torch.from_numpy(
+        np.random.default_rng(50).integers(0, T + 1, L).astype(np.int32)
+    ).to(cuda)
+    calls = {
+        "K2": (_kernels._lane_scan_at, 64, (
+            tabs.lane_table(), tabs.classes, hay, n, L, T, halo,
+            tabs.use_classes)),
+        "K5": (_kernels._batch_scan_at, 64, (
+            tabs.lane_table(), tabs.classes, hay.view(L, T), lens, tabs.halo,
+            tabs.use_classes)),
+        "K6": (_kernels._stride2_scan_at, 64, (
+            tabs.packed2, tabs.table_classed, tabs.classes2, hay, n, L, T,
+            halo)),
+    }
+    for name, (kernel, S, args) in calls.items():
+        want = kernel(S, *args)
+        assert int(want[1].sum()) > 100, name
+        for c in (0, 28, 43, 57, 71, 85, 100):
+            _assert_lane_scan_equal(kernel(S, *args, carveout=c), want)
+        with pytest.raises(RuntimeError, match="failed with error"):
+            kernel(S, *args, carveout=101)
 
 
 def test_sparse_device_path_equals_cpu(cuda) -> None:
