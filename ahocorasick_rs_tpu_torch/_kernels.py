@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -73,14 +73,14 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "ac_lane_scan": [_P, _I32, _P, _I32, _P, _I64, _P, _I32, _I32, _I32,
                      _I32, _I32, _P, _P, _P],
-    "ac_compact": [_P, _I64, _I32, _P, _P, _P, _P, _P],
+    "ac_compact": [_P, _I64, _I32, _P, _P, _P, _I32, _P],
     "ac_compact_chunk": [],
     "ac_fire": [_P, _I32, _P, _I64, _I32, _I32, _I32, _I32, _P, _P],
     "ac_verify": [_P, _I32, _P, _I32, _P, _I64, _P, _I32, _I32, _P, _P],
     "ac_stride2_scan": [_P, _P, _I32, _P, _P, _I64, _I32, _I32, _I32, _I32,
                         _I32, _P, _P, _P],
-    "ac_sparse_scan": [_P, _I64, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P,
-                       _P, _P],
+    "ac_sparse_scan": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
+                       _P, _P, _P],
     "ac_batch_scan": [_P, _I32, _P, _I32, _P, _P, _I32, _I32, _I32, _I32,
                       _I32, _P, _P, _P],
     "ac_probe_reduce": [_P, _I64, _P, _P],
@@ -187,8 +187,8 @@ def _raise_on(err: int, kernel: str) -> None:
 
 #: bit of the flagged K2 table that carries "the next state has matches"
 FLAG_SHIFT = 24
-#: threads an SM holds at once (Hopper), the sub-lanes K2, K5 and K6 aim
-#: to give each
+#: threads an SM holds at once (Hopper), the sub-lanes K2, K5, K6 and K7
+#: aim to give each
 SM_THREADS = 2048
 _SM_COUNT: dict[int, int] = {}
 
@@ -234,7 +234,7 @@ def sm_count(device: torch.device) -> int:
 
 
 def plan_sublanes(L: int, T: int, halo: int, sms: int) -> int:
-    """The sub-lane length ``S`` of K2 and K6 (and, through
+    """The sub-lane length ``S`` of K2, K6 and K7 (and, through
     :func:`batch_sublanes`, K5) for ``L`` lanes of ``T`` bytes.
 
     ``S`` divides ``T``, is at least ``halo`` (and 1) and, where ``T`` is a
@@ -329,8 +329,23 @@ def _lane_scan_at(
     return states, mask
 
 
+#: epochs a compaction scratch takes before it is cleared anew (the
+#: status words keep 30 bits of it)
+COMPACT_EPOCH_MAX = (1 << 30) - 1
+#: K3's look-back scratch by (device index, stream): [uint64 buffer,
+#: epoch of its last call]; kept across calls so that none clears it
+_COMPACT_SCRATCH: dict[tuple[int, int], list] = {}
+_compact_lock = threading.Lock()
+
+
 def compact(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3: ascending indexes int32 [cap] (-1 padded) and total int32 [1]."""
+    """K3: ascending indexes int32 [cap] (-1 padded) and total int32 [1],
+    in one launch.
+
+    The look-back scratch (a ticket counter and a status word a chunk) is
+    kept per device and stream and zeroed only when it is made or grown;
+    every call tags its status words with a new epoch, so an earlier
+    call's words never read as ready."""
     dev = mask.device
     if dev.type != "cuda":
         raise ValueError("compact kernel needs CUDA tensors")
@@ -342,11 +357,24 @@ def compact(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
     nb = -(-N // lib.ac_compact_chunk())
     idx = torch.empty(cap, dtype=torch.int32, device=dev)
     total = torch.empty(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * max(nb, 1), dtype=torch.int32, device=dev)
-    _raise_on(lib.ac_compact(
-        mask.data_ptr(), N, cap, idx.data_ptr(), total.data_ptr(),
-        scratch.data_ptr(), scratch[max(nb, 1):].data_ptr(), _stream(dev),
-    ), "compact")
+    stream = _stream(dev)
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(),
+           stream)
+    with _compact_lock:  # the epoch's order is the launches' order
+        entry = _COMPACT_SCRATCH.get(key)
+        if (entry is None or entry[0].numel() < 1 + nb
+                or entry[1] >= COMPACT_EPOCH_MAX):
+            size = max(1 + nb, 1024,
+                       2 * entry[0].numel() if entry is not None else 0)
+            entry = _COMPACT_SCRATCH[key] = [
+                torch.zeros(size, dtype=torch.int64, device=dev), 0
+            ]
+        entry[1] += 1
+        err = lib.ac_compact(
+            mask.data_ptr(), N, cap, idx.data_ptr(), total.data_ptr(),
+            entry[0].data_ptr(), entry[1], stream,
+        )
+    _raise_on(err, "compact")
     LAUNCHES["compact"] += 1
     return idx, total
 
@@ -486,31 +514,112 @@ def _stride2_scan_at(
     return states, mask
 
 
-def sparse_scan(
+class SparseTables(NamedTuple):
+    """K7's tables, derived from the sparse automaton by
+    :func:`sparse_tables`: O(S + E) bytes, no dense row."""
+
+    #: int32 [S, 4]: edge start, edge count, fail link, has-match flag
+    records: torch.Tensor
+    #: uint8 [E + 32]: each edge's byte, in key order; 32 zero bytes after
+    #: them, so a 16-byte window past a state's run stays inside
+    labels: torch.Tensor
+    #: int32 [E]: each edge's target, in key order
+    targets: torch.Tensor
+    #: int32 [257]: the root's next state on each byte (PAD: the root)
+    root_next: torch.Tensor
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self)
+
+
+def sparse_tables(
     keys: torch.Tensor, targets: torch.Tensor, fail: torch.Tensor,
-    match_count: torch.Tensor, hay: torch.Tensor, n: int, L: int, T: int,
+    match_count: torch.Tensor,
+) -> SparseTables:
+    """K7's tables from the sorted int64 edge keys ``state*257 + byte``,
+    their int32 targets, the int32 fail links and the match counts (one
+    per state), on their device.  State ``s``'s edges are
+    ``keys[start:start + count]`` with ``start`` the keys' ``searchsorted``
+    of ``s*257``."""
+    S, E = fail.numel(), keys.numel()
+    if match_count.numel() != S or targets.numel() != E:
+        raise ValueError("sparse_tables: keys/targets or fail/match_count "
+                         "differ in length")
+    if E + 32 >= 1 << 31:
+        raise ValueError(f"sparse_tables: {E} edges do not fit int32")
+    dev = keys.device
+    bounds = torch.searchsorted(
+        keys, torch.arange(S + 1, dtype=torch.int64, device=dev) * 257
+    )
+    start, count = bounds[:-1], bounds[1:] - bounds[:-1]
+    label = keys % 257
+    if E and (int(bounds[-1]) != E or int(label.max()) > 255):
+        raise ValueError("sparse_tables: an edge leaves a state past the "
+                         "last, or is labelled PAD")
+    records = torch.stack(
+        [start, count, fail.long(), (match_count > 0).long()], dim=1
+    ).to(torch.int32)
+    labels = torch.zeros(E + 32, dtype=torch.uint8, device=dev)
+    labels[:E] = label.to(torch.uint8)
+    root_next = torch.zeros(257, dtype=torch.int32, device=dev)
+    root_edges = int(count[0]) if S else 0
+    root_next[label[:root_edges]] = targets[:root_edges].to(torch.int32)
+    return SparseTables(records, labels, targets.to(torch.int32).contiguous(),
+                        root_next)
+
+
+def sparse_scan(
+    tabs: SparseTables, hay: torch.Tensor, n: int, L: int, T: int,
     halo: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K7: states int32 [L*T] and match mask uint8 [L*T]."""
+    """K7: states int32 [L*T] and match mask uint8 [L*T] of a uint8
+    haystack of ``L*T`` bytes (the first ``n`` real) walked as ``L`` lanes
+    of ``T`` bytes over :func:`sparse_tables`' tables.
+
+    K2's contract: ``states`` holds the state only where ``mask`` is 1.
+    The kernel walks sub-lanes of :func:`plan_sublanes` bytes for this
+    card; the outputs do not depend on their length.
+    """
+    if hay.device.type != "cuda":
+        raise ValueError("sparse_scan kernel needs CUDA tensors")
+    S = plan_sublanes(L, T, halo, sm_count(hay.device))
+    return _sparse_scan_at(S, tabs, hay, n, L, T, halo)
+
+
+def _sparse_scan_at(
+    S: int, tabs: SparseTables, hay: torch.Tensor, n: int, L: int, T: int,
+    halo: int, carveout: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sparse_scan` with sub-lanes of ``S`` bytes (``S`` = ``T``
+    walks each lane in one thread) and the kernel's shared-memory
+    ``carveout`` (as :func:`_lane_scan_at`)."""
     dev = hay.device
     if dev.type != "cuda":
         raise ValueError("sparse_scan kernel needs CUDA tensors")
-    _check("keys", keys, torch.int64, dev, 1)
-    _check("targets", targets, torch.int32, dev, 1)
-    _check("fail", fail, torch.int32, dev, 1)
-    _check("match_count", match_count, torch.int32, dev, 1)
+    _check("records", tabs.records, torch.int32, dev, 2)
+    _check("labels", tabs.labels, torch.uint8, dev, 1)
+    _check("targets", tabs.targets, torch.int32, dev, 1)
+    _check("root_next", tabs.root_next, torch.int32, dev, 1)
     _check("hay", hay, torch.uint8, dev, 1)
-    if targets.numel() != keys.numel() or fail.numel() != match_count.numel():
-        raise ValueError("sparse_scan: keys/targets or fail/match_count differ")
+    if (tabs.records.shape[1] != 4 or tabs.root_next.numel() != 257
+            or tabs.labels.numel() != tabs.targets.numel() + 32
+            or tabs.labels.data_ptr() % 16 or tabs.records.data_ptr() % 16):
+        raise ValueError("sparse_scan: tables not as sparse_tables makes them")
     if hay.numel() != L * T or halo > T or not 0 <= n <= L * T:
         raise ValueError("sparse_scan: bad layout, halo or n")
+    if T % 16 or S % 16 or T % S or S < halo or S < 16:
+        raise ValueError(
+            f"sparse_scan: sub-lanes of {S} bytes do not fit T={T}, "
+            f"halo={halo}"
+        )
     states = torch.empty(L * T, dtype=torch.int32, device=dev)
     mask = torch.empty(L * T, dtype=torch.uint8, device=dev)
     lib = build()["sparse"]
     _raise_on(lib.ac_sparse_scan(
-        keys.data_ptr(), keys.numel(), targets.data_ptr(), fail.data_ptr(),
-        match_count.data_ptr(), hay.data_ptr(), n, L, T, halo,
-        states.data_ptr(), mask.data_ptr(), _stream(dev),
+        tabs.records.data_ptr(), tabs.labels.data_ptr(),
+        tabs.targets.data_ptr(), tabs.root_next.data_ptr(), hay.data_ptr(),
+        n, L, T, halo, S, carveout, states.data_ptr(), mask.data_ptr(),
+        _stream(dev),
     ), "sparse_scan")
     LAUNCHES["sparse_scan"] += 1
     return states, mask

@@ -43,13 +43,27 @@
 // K3 ac_compact replaces ahocorasick_rs_tpu/ops/scan_jax.py
 // `compact_sparse`.
 //   Bound: reading the mask once (N bytes) plus writing `cap` int32.
-//   Design: three launches.  (1) per-block counts over 4096-byte chunks,
-//   16 consecutive bytes per thread; (2) one block turns the counts into
-//   exclusive offsets, writes the exact total and pads the output with -1
-//   past it; (3) each block with matches recomputes its per-thread counts,
-//   scans them in the block and scatters its indexes in order.  Output is
-//   ascending without a sort, and blocks whose offset is past `cap` or
-//   whose count is 0 stop after one load.
+//   Design: one single-pass launch.  A block takes its 16 KiB chunk of the
+//   mask in the order blocks start (an atomic ticket, so a chunk waits
+//   only on chunks whose blocks already run), reads it once with 16-byte
+//   loads (64 bytes a thread, kept in registers), scans the per-thread
+//   counts in the block, and finds its offset by decoupled look-back: it
+//   publishes its count, then its warp 0 reads the 32 chunks before it at
+//   a time and sums their counts back to the nearest inclusive prefix, and
+//   it publishes its own.  A block lives for its ticket, its load and its
+//   look-back one after another, and that, not the bytes, bounds the rate:
+//   in a trial on an H100, a block-wide look-back, a warp's look-back of
+//   64-256 chunks a step, 8 or 32 KiB chunks, coalesced (striped) loads,
+//   eight blocks an SM and a spin back-off ran no faster.  Then it scatters its indexes in
+//   ascending order straight from registers (none past `cap`).  Blocks
+//   past the last chunk pad `idx` with -1 from min(total, cap) to `cap`,
+//   16,384 entries each, once the last chunk's prefix is out; the last
+//   chunk writes the exact total, also when it exceeds `cap`.
+//   The ticket counter and the status words live in scratch that the
+//   wrapper keeps per device and stream (_kernels.py `compact`): the last
+//   ticket resets the counter, and each word carries the call's epoch, so
+//   a word from an earlier call never reads as ready and nothing has to
+//   be cleared between calls.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,10 +77,13 @@ using sublane::kPad;
 using sublane::kStateMask;
 using sublane::Plan;
 
-constexpr int kThreads = 256;       // threads per compaction block
-constexpr int kPer = 16;            // mask bytes per thread
-constexpr int kChunk = kThreads * kPer;  // mask bytes per compaction block
-constexpr int kScanThreads = 1024;  // threads of the single offsets block
+constexpr int kThreads = 256;            // threads of a compaction block
+constexpr int kPer = 64;                 // mask bytes a thread
+constexpr int kWords = kPer / 4;
+constexpr int kChunk = kThreads * kPer;  // mask bytes a block
+constexpr int kPadPer = 16384;           // idx entries a padding block
+// status word: epoch << 34 | flag << 32 | value
+constexpr uint32_t kAggregate = 1, kInclusive = 2;
 // K2's shared-memory carveout (sublane.cuh `set_carveout`): 43 percent
 // asks for 100 KB, three blocks an SM and about 156 KB of L1 for the
 // table's hot rows.  The fastest split in chip_smoke.py's sweep on an
@@ -141,7 +158,7 @@ __device__ int32_t block_exclusive_scan(int32_t v, int32_t* warp_sums,
   if (lane == 31) warp_sums[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    const int nw = blockDim.x >> 5;
+    constexpr int nw = kThreads / 32;
     int32_t w = lane < nw ? warp_sums[lane] : 0;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
@@ -156,82 +173,162 @@ __device__ int32_t block_exclusive_scan(int32_t v, int32_t* warp_sums,
   return before + x - v;
 }
 
-// Count of the nonzero bytes among this thread's 16 mask bytes, which are
-// also left in `bytes` for the scatter pass.
-__device__ int32_t load_thread_bytes(const uint8_t* __restrict__ mask,
-                                     int64_t N, int64_t at, bool vec,
-                                     uint8_t bytes[kPer]) {
-  int32_t c = 0;
+// 0x80 in each nonzero byte of w, 0 elsewhere.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  return (((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) & 0x80808080u;
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             uint32_t epoch, uint32_t flag,
+                                             int32_t value) {
+  const unsigned long long v =
+      (static_cast<unsigned long long>(epoch) << 34) |
+      (static_cast<unsigned long long>(flag) << 32) |
+      static_cast<uint32_t>(value);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// The flag of a status word of this epoch (0: not ready) and its value.
+__device__ __forceinline__ uint32_t status_flag(unsigned long long w,
+                                                uint32_t epoch) {
+  return static_cast<uint32_t>(w >> 34) == epoch
+             ? static_cast<uint32_t>(w >> 32) & 3
+             : 0;
+}
+
+// Warp 0 of chunk `ticket`: the sum of the counts of every chunk before
+// it, by decoupled look-back over `status` (agg is this chunk's count),
+// 32 chunks a step, lane l reading chunk j - l.  Lane 0 publishes the
+// chunk's count first and its inclusive prefix last.
+__device__ int32_t look_back(unsigned long long* status, int32_t ticket,
+                             uint32_t epoch, int32_t agg) {
+  const int lane = threadIdx.x & 31;
+  if (ticket == 0) {
+    if (lane == 0) store_status(status, epoch, kInclusive, agg);
+    return 0;
+  }
+  if (lane == 0) store_status(status + ticket, epoch, kAggregate, agg);
+  int32_t excl = 0;
+  for (int32_t j = ticket - 1;; j -= 32) {
+    const int32_t k = j - lane;  // lane 0 the nearest chunk
+    uint32_t flag;
+    int32_t v;
+    do {  // until all 32 chunks have published; before chunk 0 reads 0
+      if (k >= 0) {
+        const unsigned long long w = load_status(status + k);
+        flag = status_flag(w, epoch);
+        v = static_cast<int32_t>(static_cast<uint32_t>(w));
+      } else {
+        flag = kInclusive;
+        v = 0;
+      }
+    } while (__any_sync(0xffffffffu, flag == 0));
+    // the nearest inclusive prefix, if any: it and the counts after it
+    const uint32_t incl = __ballot_sync(0xffffffffu, flag == kInclusive);
+    const int last = incl ? __ffs(incl) - 1 : 31;
+    excl += __reduce_add_sync(0xffffffffu, lane <= last ? v : 0);
+    if (incl) break;
+  }
+  if (lane == 0) store_status(status + ticket, epoch, kInclusive, excl + agg);
+  return excl;
+}
+
+// scratch[0] is the ticket counter, scratch[1 + c] chunk c's status word.
+__global__ void __launch_bounds__(kThreads)
+compact_kernel(const uint8_t* __restrict__ mask, int64_t N, bool vec,
+               int32_t nb, int32_t blocks, int32_t cap,
+               int32_t* __restrict__ idx, int32_t* __restrict__ total_out,
+               unsigned long long* scratch, uint32_t epoch) {
+  __shared__ int32_t warp_sums[kThreads / 32];
+  __shared__ int32_t s_agg, s_excl, s_ticket;
+  unsigned long long* status = scratch + 1;
+  if (threadIdx.x == 0) {
+    const int32_t t = static_cast<int32_t>(atomicAdd(scratch, 1ull));
+    if (t == blocks - 1) atomicExch(scratch, 0ull);  // every ticket is out
+    s_ticket = t;
+  }
+  __syncthreads();
+  const int32_t ticket = s_ticket;
+  if (ticket >= nb) {  // a padding block: wait for the total
+    if (threadIdx.x == 0) {
+      int32_t total = 0;
+      if (nb > 0) {
+        unsigned long long w;
+        do {
+          w = load_status(status + nb - 1);
+        } while (status_flag(w, epoch) != kInclusive);
+        total = static_cast<int32_t>(static_cast<uint32_t>(w));
+      } else if (ticket == 0) {
+        *total_out = 0;  // an empty mask
+      }
+      s_agg = total;
+    }
+    __syncthreads();
+    const int64_t k = ticket - nb, first = min(s_agg, cap);
+    int64_t lo = k * kPadPer, hi = lo + kPadPer;
+    if (lo < first) lo = first;
+    if (hi > cap) hi = cap;
+    for (int64_t j = lo + threadIdx.x; j < hi; j += kThreads) idx[j] = -1;
+    return;
+  }
+  const int64_t at =
+      static_cast<int64_t>(ticket) * kChunk + threadIdx.x * kPer;
+  uint32_t w[kWords];
   if (vec && at + kPer <= N) {
-    const uint4 v = *reinterpret_cast<const uint4*>(mask + at);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    const uint4* src = reinterpret_cast<const uint4*>(mask + at);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      bytes[i] = static_cast<uint8_t>(w[i >> 2] >> (8 * (i & 3)));
-      c += bytes[i] != 0;
+    for (int i = 0; i < kWords / 4; ++i) {
+      const uint4 v = __ldg(src + i);
+      w[4 * i] = v.x;
+      w[4 * i + 1] = v.y;
+      w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
     }
-  } else {
+  } else {  // the ragged end, or an unaligned view
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      bytes[i] = (at + i < N) ? mask[at + i] : 0;
-      c += bytes[i] != 0;
+    for (int i = 0; i < kWords; ++i) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int64_t p = at + 4 * i + q;
+        if (p < N) x |= static_cast<uint32_t>(mask[p]) << (8 * q);
+      }
+      w[i] = x;
     }
   }
-  return c;
-}
-
-__global__ void count_kernel(const uint8_t* __restrict__ mask, int64_t N,
-                             bool vec, int32_t* __restrict__ counts) {
-  __shared__ int32_t warp_sums[kThreads / 32];
-  __shared__ int32_t total;
-  const int64_t at =
-      static_cast<int64_t>(blockIdx.x) * kChunk + threadIdx.x * kPer;
-  uint8_t bytes[kPer];
-  const int32_t c = load_thread_bytes(mask, N, at, vec, bytes);
-  block_exclusive_scan(c, warp_sums, &total);
-  if (threadIdx.x == 0) counts[blockIdx.x] = total;
-}
-
-__global__ void offsets_kernel(const int32_t* __restrict__ counts, int32_t nb,
-                               int32_t* __restrict__ offsets, int32_t cap,
-                               int32_t* __restrict__ idx,
-                               int32_t* __restrict__ total_out) {
-  __shared__ int32_t warp_sums[kScanThreads / 32];
-  __shared__ int32_t total;
-  // each thread owns a contiguous run of block counts
-  const int32_t per = (nb + kScanThreads - 1) / kScanThreads;
-  const int32_t lo = min(nb, static_cast<int32_t>(threadIdx.x) * per);
-  const int32_t hi = min(nb, lo + per);
-  int32_t sum = 0;
-  for (int32_t b = lo; b < hi; ++b) sum += counts[b];
-  int32_t run = block_exclusive_scan(sum, warp_sums, &total);
-  for (int32_t b = lo; b < hi; ++b) {
-    offsets[b] = run;
-    run += counts[b];
-  }
-  if (threadIdx.x == 0) *total_out = total;
-  for (int32_t j = min(total, cap) + threadIdx.x; j < cap; j += kScanThreads)
-    idx[j] = -1;
-}
-
-__global__ void scatter_kernel(const uint8_t* __restrict__ mask, int64_t N,
-                               bool vec, const int32_t* __restrict__ counts,
-                               const int32_t* __restrict__ offsets,
-                               int32_t cap, int32_t* __restrict__ idx) {
-  __shared__ int32_t warp_sums[kThreads / 32];
-  __shared__ int32_t total;
-  const int32_t off = offsets[blockIdx.x];
-  if (counts[blockIdx.x] == 0 || off >= cap) return;  // uniform per block
-  const int64_t at =
-      static_cast<int64_t>(blockIdx.x) * kChunk + threadIdx.x * kPer;
-  uint8_t bytes[kPer];
-  const int32_t c = load_thread_bytes(mask, N, at, vec, bytes);
-  int32_t dst = off + block_exclusive_scan(c, warp_sums, &total);
+  int32_t c = 0;
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    if (bytes[i]) {
-      if (dst < cap) idx[dst] = static_cast<int32_t>(at + i);
+  for (int i = 0; i < kWords; ++i) c += __popc(nonzero_bytes(w[i]));
+  const int32_t before = block_exclusive_scan(c, warp_sums, &s_agg);
+  if (threadIdx.x < 32) {
+    const int32_t excl = look_back(status, ticket, epoch, s_agg);
+    if (threadIdx.x == 0) {
+      s_excl = excl;
+      if (ticket == nb - 1) *total_out = excl + s_agg;
+    }
+  }
+  __syncthreads();
+  int32_t dst = s_excl + before;
+  if (c == 0 || dst >= cap) return;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    uint32_t nz = nonzero_bytes(w[i]);
+    while (nz) {  // this word's nonzero bytes, in ascending order
+      const int q = (__ffs(nz) - 1) >> 3;
+      if (dst < cap) idx[dst] = static_cast<int32_t>(at + 4 * i + q);
       ++dst;
+      nz &= nz - 1;
     }
   }
 }
@@ -270,24 +367,24 @@ int ac_lane_scan(const void* ftable, int32_t ncols, const void* classes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Scratch: block_counts and block_offsets each hold ceil(N / 4096) int32.
+// `scratch` holds 1 + ceil(N / kChunk) uint64, zeroed when first
+// allocated and kept for every later call on the same stream; `epoch`
+// (1 to 2^30 - 1) differs from that of every earlier call on it.
 int ac_compact(const void* mask, int64_t N, int32_t cap, void* idx,
-               void* total, void* block_counts, void* block_offsets,
-               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+               void* total, void* scratch, int32_t epoch, void* stream) {
+  if (N < 0 || N >= (int64_t{1} << 31) || cap < 1 || epoch < 1 ||
+      epoch >= (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int32_t nb = static_cast<int32_t>((N + kChunk - 1) / kChunk);
+  const int32_t blocks = nb + (cap + kPadPer - 1) / kPadPer;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  int32_t* counts = static_cast<int32_t*>(block_counts);
-  int32_t* offsets = static_cast<int32_t*>(block_offsets);
   // 16-byte vector loads need a 16-byte aligned mask (a view may not be)
   const bool vec = (reinterpret_cast<uintptr_t>(m) & 15) == 0;
-  if (nb > 0) count_kernel<<<nb, kThreads, 0, s>>>(m, N, vec, counts);
-  offsets_kernel<<<1, kScanThreads, 0, s>>>(
-      counts, nb, offsets, cap, static_cast<int32_t*>(idx),
-      static_cast<int32_t*>(total));
-  if (nb > 0)
-    scatter_kernel<<<nb, kThreads, 0, s>>>(m, N, vec, counts, offsets, cap,
-                                           static_cast<int32_t*>(idx));
+  compact_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      m, N, vec, nb, blocks, cap, static_cast<int32_t*>(idx),
+      static_cast<int32_t*>(total),
+      static_cast<unsigned long long*>(scratch),
+      static_cast<uint32_t>(epoch));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,8 +11,8 @@ the exactness argument).  The haystack crosses to the device as raw
    mask.  One of three kernels, by engine and table size
    (:func:`scan_device`): the stride-2 pair scan (K6, ``csrc/stride2.cu``)
    whenever the packed pair table fits, else the one-byte dense scan (K2,
-   ``csrc/scan.cu``); the sparse engine runs the CSR binary-search scan
-   (K7, ``csrc/sparse.cu``).
+   ``csrc/scan.cu``); the sparse engine runs the per-state edge-search
+   scan (K7, ``csrc/sparse.cu``).
 2. **Compaction** (K3): matched positions are compacted on the device into
    a fixed-capacity buffer plus an exact count; the caller retries with a
    larger capacity on overflow.  Only O(matches) bytes return to the host.
@@ -49,7 +49,7 @@ SEGMENT_BYTES = 256 << 20
 #: :class:`~.resolve.MatchDenseError` instead of growing the cap toward the
 #: segment length (density bailout; api._find re-routes)
 DENSE_BAILOUT_MIN = 1 << 22
-#: mask bytes per block of the two-level compaction (the kernel's chunk)
+#: mask bytes per block of the plain two-level compaction
 COMPACT_BLOCK = 4096
 
 
@@ -456,64 +456,72 @@ def _scan_compact2(
 
 
 def _sparse_scan_plain(
-    keys: torch.Tensor, targets: torch.Tensor, fail: torch.Tensor,
-    match_count: torch.Tensor, hay: torch.Tensor, n: int, L: int, T: int,
+    tabs: _kernels.SparseTables, hay: torch.Tensor, n: int, L: int, T: int,
     halo: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K7: per time column, a vectorised
-    ``searchsorted`` over the edge keys with a failure-link while loop."""
-    E = keys.numel()
+    """Plain PyTorch version of K7 over the same derived tables
+    (:func:`._kernels.sparse_tables`): per time column, every lane
+    binary-searches its state's label run, follows fail links on a miss
+    and reads the root's next state once it reaches the root."""
+    records = tabs.records.long()
+    labels = tabs.labels.long()
+    targets = tabs.targets.long()
+    root_next = tabs.root_next.long()
+    E = targets.numel()
     ext = build_lanes(hay, L, T, halo, n)
     dev = hay.device
     s = torch.zeros(L, dtype=torch.long, device=dev)
     out = torch.empty((L, T), dtype=torch.int32, device=dev)
     for j in range(halo + T):
-        col = ext[:, j]
+        b = ext[:, j]
         st = s
-        done = torch.zeros(L, dtype=torch.bool, device=dev)
+        done = b == PAD_BYTE  # no edge carries PAD: the root at once
         res = torch.zeros(L, dtype=torch.long, device=dev)
-        while not bool(done.all()):
-            key = st * 257 + col
+        while True:
+            at_root = ~done & (st == 0)
+            res = torch.where(at_root, root_next[b], res)
+            done = done | at_root
+            if bool(done.all()):
+                break
+            start, end = records[st, 0], records[st, 0] + records[st, 1]
+            lo, hi = start, end
+            while bool((lo < hi).any()):
+                mid = (lo + hi) >> 1
+                less = labels[mid] < b
+                live = lo < hi
+                lo = torch.where(live & less, mid + 1, lo)
+                hi = torch.where(live & ~less, mid, hi)
+            found = ~done & (lo < end) & (labels[lo] == b)
             if E:
-                k = torch.searchsorted(keys, key).clamp(max=E - 1)
-                found = keys[k] == key
-                res = torch.where(~done & found, targets[k].long(), res)
-            else:
-                found = torch.zeros_like(done)
-            root_miss = ~done & ~found & (st == 0)
-            res = torch.where(root_miss, 0, res)
-            done = done | found | root_miss
-            st = torch.where(done, st, fail[st].long())
+                res = torch.where(found, targets[lo.clamp(max=E - 1)], res)
+            done = done | found
+            st = torch.where(done, st, records[st, 2])
         s = res
         if j >= halo:
             out[:, j - halo] = s
     states = out.reshape(-1)
     idx = torch.arange(L * T, device=dev)
-    mask = (match_count[states.long()] > 0) & (idx < n)
+    mask = (records[states.long(), 3] > 0) & (idx < n)
     return states, mask.to(torch.uint8)
 
 
 def sparse_scan(
-    keys: torch.Tensor, targets: torch.Tensor, fail: torch.Tensor,
-    match_count: torch.Tensor, hay: torch.Tensor, n: int, L: int, T: int,
+    tabs: _kernels.SparseTables, hay: torch.Tensor, n: int, L: int, T: int,
     halo: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K7: (states int32 [L*T], match mask uint8 [L*T]) over the sparse
-    CSR automaton (sorted int64 keys ``state*257 + byte``)."""
+    automaton's derived tables (:attr:`DeviceTables.sparse`).
+
+    K2's contract: the mask is exact everywhere; ``states`` is defined
+    where the mask is 1 (the kernel writes it nowhere else; the plain
+    version writes every position)."""
     if hay.device.type == "cpu":
-        return _sparse_scan_plain(
-            keys, targets, fail, match_count, hay, n, L, T, halo
-        )
-    return _kernels.sparse_scan(
-        keys, targets, fail, match_count, hay, n, L, T, halo
-    )
+        return _sparse_scan_plain(tabs, hay, n, L, T, halo)
+    return _kernels.sparse_scan(tabs, hay, n, L, T, halo)
 
 
 def _scan_compact_sparse(
-    keys: torch.Tensor,
-    targets: torch.Tensor,
-    fail: torch.Tensor,
-    match_count: torch.Tensor,
+    tabs: _kernels.SparseTables,
     hay: torch.Tensor,
     n: int,
     L: int,
@@ -521,15 +529,12 @@ def _scan_compact_sparse(
     halo: int,
     cap: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sparse-CSR lane scan: binary-search goto + failure walk.
+    """Sparse lane scan: per-state edge search + failure walk.
 
     The NoncontiguousNFA engine's device path: smallest tables, slowest
     scan.  Returns compacted (positions[cap], states[cap], total).
     """
-    return _compact_states(
-        *sparse_scan(keys, targets, fail, match_count, hay, n, L, T, halo),
-        cap,
-    )
+    return _compact_states(*sparse_scan(tabs, hay, n, L, T, halo), cap)
 
 
 class DeviceTables:
@@ -540,7 +545,8 @@ class DeviceTables:
                  packed2_max_bytes: int = PACKED2_MAX_BYTES) -> None:
         self.device = torch.device(device)
         self.engine = engine
-        self.keys = self.targets = self.fail = None
+        #: K7's tables (:func:`._kernels.sparse_tables`), sparse engine only
+        self.sparse: Optional[_kernels.SparseTables] = None
         self.table = None
         self.flagged = None
         if engine == "dfa":
@@ -552,14 +558,16 @@ class DeviceTables:
             classes = am.byte_classes
             self.use_classes = True
         else:  # sparse CSR (NoncontiguousNFA analogue)
-            keys, targets, fail = am.sparse
-            self.keys = self._upload(keys)
-            self.targets = self._upload(targets)
-            self.fail = self._upload(fail)
             classes = np.zeros(257, dtype=np.int32)
             self.use_classes = False
         self.classes = self._upload(np.asarray(classes, dtype=np.int32))
         self.match_count = self._upload(am.match_count)
+        if engine == "sparse":
+            keys, targets, fail = am.sparse
+            self.sparse = _kernels.sparse_tables(
+                self._upload(keys), self._upload(targets),
+                self._upload(fail), self.match_count,
+            )
         #: bytes before a position that decide its state (K5's warm-up)
         self.halo = max(am.max_len - 1, 0)
         self._am = am
@@ -664,8 +672,7 @@ def scan_device(
         # argument but the compaction capacity bound
         if tables.engine == "sparse":
             span, scan = "sparse_scan", partial(
-                _scan_compact_sparse, tables.keys, tables.targets,
-                tables.fail, tables.match_count, hay_dev, m, L, T, halo,
+                _scan_compact_sparse, tables.sparse, hay_dev, m, L, T, halo,
             )
         elif stride2:
             span, scan = "stride2_scan", partial(

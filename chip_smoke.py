@@ -7,11 +7,13 @@ Run from the repository root, with one CUDA card visible:
 
 It builds the CUDA kernels from ``ahocorasick_rs_tpu_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version at the main
-path's shapes (exact equality; all values are integers; K2's, K5's and
-K6's states only where their masks are 1, K2 also at the sharded ranks'
-layouts against its own single-device output, K5 at the LONG and SHORT
-batches and a rank's row block, K6 also against K2 at its layout and on
-the bailout's match-dense input) and times both.
+path's shapes (exact equality; all values are integers; K2's, K5's, K6's
+and K7's states only where their masks are 1, K2 also at the sharded
+ranks' layouts against its own single-device output, K5 at the LONG and
+SHORT batches and a rank's row block, K6 also against K2 at its layout and
+on the bailout's match-dense input, K7 also against K2 at its layout for
+the names and for 100,000 names over 16 MiB; K3 at three caps and as one
+kernel a call) and times both.
 Then it drives every device path through the public API and checks every
 answer against the port's own host tier: ``find_matches_as_indexes`` on a
 64 MiB corpus with 1,000 name patterns (the upstream benchmark's LONG
@@ -80,6 +82,10 @@ CARVEOUTS = (28, 43, 57, 71, 85, 100)
 BAILOUT_MIB = 16
 #: K1 prefilter shapes (m, words, passes) checked besides the names' own
 K1_CONFIGS = ((8, 8, 2), (3, 1, 1))
+#: K7's large-set case: names (seed 1) and corpus MiB, whose sparse
+#: tables outgrow the L1 (the engine exists for sets larger still)
+K7_BIG_PATTERNS = 100_000
+K7_BIG_MIB = 16
 
 
 def long_docs(names: list[bytes]) -> list[str]:
@@ -186,6 +192,28 @@ def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def profiled(fn, reps: int = 20) -> tuple[float, float]:
+    """CUDA kernels a call of ``fn`` runs (copies and fills left out) and
+    their device time a call (ms), from ``torch.profiler`` over ``reps``
+    calls after a warm-up call: the kernel's own time, which ``cuda_ms``
+    cannot give where the host takes longer to launch it than the card to
+    run it."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    require(found, "the profiler saw no kernel")
+    us = sum(e.time_range.end - e.time_range.start for e in found)
+    return len(found) / reps, us / reps / 1e3
+
+
 def tables_bytes(t) -> int:
     """Bytes of a ``DeviceTables``' transition table, byte classes and
     match counts."""
@@ -203,6 +231,10 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
     )
     from ahocorasick_rs_tpu_torch.ops import probe, scan_cuda, scan_teddy
     from ahocorasick_rs_tpu_torch.parallel import sharded
+    from ahocorasick_rs_tpu_torch.tools._synth import (
+        synth_corpus,
+        synth_names,
+    )
     from ahocorasick_rs_tpu_torch.tools.probe_transpose_kernel import (
         SWEEP_TILES,
     )
@@ -294,6 +326,9 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
         fg, _ = _kernels.compact(fired_u8, cap)
     groups_ms = cuda_ms(lambda: _kernels.compact(fired_u8, cap), 20)
     groups_shape = f"mask uint8 [{G}] ({ftotal} true), cap={cap}"
+    cap_g = cap
+    groups_per_call, groups_dev_ms = profiled(
+        lambda: _kernels.compact(fired_u8, cap_g))
 
     # K4: verify walk over the fired windows, W = max_len + COARSE - 1
     W = am.max_len + scan_teddy.COARSE - 1
@@ -432,13 +467,28 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
         "ms_by_carveout": by_carveout(_kernels._lane_scan_at, S, kk2_args),
     }
 
-    # K3 on the dense path's shape: the lane scan's match mask
+    # K3 on the dense path's shape: the lane scan's match mask, at the
+    # sticky starting cap and at caps the retry path grows to (the padding
+    # blocks write -1 past the total)
     cap = cls.last_cap
     idx, total = _kernels.compact(lm, cap)
     idx_p, total_p = scan_cuda._compact_plain(lm, cap)
     require(int(total) == int(total_p), "K3 total differs (lanes)")
     err = max_abs_err(idx, idx_p)
     require(err == 0, f"K3 compact differs from its plain version ({err})")
+    per_call, dev_ms = profiled(lambda: _kernels.compact(lm, cap))
+    ms_by_cap = {}
+    for big in (1 << 17, 1 << 23):
+        idx_b, total_b = _kernels.compact(lm, big)
+        want_b = scan_cuda._compact_plain(lm, big)
+        require(int(total_b) == int(want_b[1]) and torch.equal(idx_b,
+                                                               want_b[0]),
+                f"K3 at cap {big} differs from its plain version")
+        ms_by_cap[big] = {
+            "ms": cuda_ms(lambda: _kernels.compact(lm, big), 20),
+            "device_ms": profiled(lambda: _kernels.compact(lm, big))[1],
+            "bound_ms": bound_ms(lm.numel() + 4 * big + 4),
+        }
     out["compact"] = {
         "shape": f"mask uint8 [{lm.numel()}] ({int(total)} true), cap={cap}",
         "max_abs_err": err,
@@ -449,7 +499,14 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
         "library_ms": cuda_ms(lambda: torch.nonzero(lm), 20),
         "groups_shape": groups_shape,
         "groups_ms": groups_ms,
+        "groups_device_ms": groups_dev_ms,
+        "groups_bound_ms": bound_ms(G + 4 * cap_g + 4),
+        "ms_by_cap": ms_by_cap,
+        "kernels_per_call": per_call,
+        "device_ms": dev_ms,
     }
+    require(per_call == 1 == groups_per_call,
+            f"K3 ran {per_call} / {groups_per_call} kernels a call, not one")
 
     # K6: stride-2 scan at the dense path's layout, classed tables (the
     # dense phase runs ContiguousNFA; its 19.6 MiB pair table fits the
@@ -634,37 +691,81 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
                                       long_c["kern"]),
     }
 
-    # K7: the sparse CSR scan at the sparse path's layout (K2's: the same
-    # halo); its plain version walks every failure link of every lane in
-    # a vectorised loop and takes seconds here
+    # K7: the sparse scan at the sparse path's layout (K2's: the same
+    # halo), over its derived tables; K2's contract against its plain
+    # version (which walks every failure link of every lane in a
+    # vectorised loop) and against K2 over the classed table of the same
+    # automaton at the same layout; then the same against K2 for 100,000
+    # names over 16 MiB, whose tables no longer fit in L1
     sp = scan_cuda.DeviceTables(am, "sparse", dev)
-    k7_args = (sp.keys, sp.targets, sp.fail, sp.match_count, hay, n, L, T,
-               halo)
-    got = _kernels.sparse_scan(*k7_args)
-    want = scan_cuda._sparse_scan_plain(*k7_args)
-    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    k7_args = (sp.sparse, hay, n, L, T, halo)
+    got7 = _kernels.sparse_scan(*k7_args)
+    err = lane_scan_err(got7, scan_cuda._sparse_scan_plain(*k7_args))
     require(err == 0, f"K7 sparse scan differs from its plain version "
                       f"({err})")
-    one_lane7 = (sp.keys, sp.targets, sp.fail, sp.match_count,
-                 hay[:T].contiguous(), T, 1, T, halo)
-    E = sp.keys.numel()
+    require(lane_scan_err(got7, (st, lm)) == 0,
+            "K7 differs from K2 at the same layout and halo (names)")
+    plain7_ms = cuda_ms(
+        lambda: scan_cuda._sparse_scan_plain(*k7_args), 1, warmup=0
+    )
+    big_names = synth_names(K7_BIG_PATTERNS, np.random.default_rng(SEED + 1))
+    big_n = K7_BIG_MIB << 20
+    big_corpus = synth_corpus(big_n, big_names,
+                              np.random.default_rng(SEED + 1))
+    big_am = build_automaton(big_names)
+    big_sp = scan_cuda.DeviceTables(big_am, "sparse", dev)
+    big_cls = scan_cuda.DeviceTables(big_am, "classed", dev)
+    big_halo = big_am.max_len - 1
+    Lb7, Tb7 = scan_cuda.choose_layout(big_n, big_halo)
+    buf7 = np.zeros(Lb7 * Tb7, dtype=np.uint8)
+    buf7[:big_n] = big_corpus
+    big_hay = torch.from_numpy(buf7).to(dev)
+    big_args = (big_sp.sparse, big_hay, big_n, Lb7, Tb7, big_halo)
+    got_big = _kernels.sparse_scan(*big_args)
+    big_k2 = (big_cls.lane_table(), big_cls.classes, big_hay, big_n, Lb7,
+              Tb7, big_halo, big_cls.use_classes)
+    require(lane_scan_err(got_big, _kernels.lane_scan(*big_k2)) == 0,
+            "K7 differs from K2 at the same layout and halo (100,000 names)")
+
+    def k7_case(t, tc, args, am_, k2) -> dict:
+        tabs, hay_, n_, L_, T_, halo_ = args
+        S_ = _kernels.plan_sublanes(L_, T_, halo_, _kernels.sm_count(dev))
+        hits = int(_kernels.sparse_scan(*args)[1].sum(dtype=torch.int64))
+        return {
+            "L": L_, "T": T_, "halo": halo_, "S": S_, "matches": hits,
+            "states": am_.num_states, "edges": tabs.targets.numel(),
+            "ms": cuda_ms(lambda: _kernels.sparse_scan(*args), 5),
+            # haystack read, mask written, a state at each match, the
+            # derived tables read
+            "bound_ms": bound_ms(2 * L_ * T_ + 4 * hits + tabs.nbytes()),
+            "tables_bytes": tabs.nbytes(),
+            "classed_table_bytes": tables_bytes(tc),
+            "k2_ms": cuda_ms(lambda: _kernels.lane_scan(*k2), 5),
+            # one sub-lane: S + halo dependent steps, this design's floor
+            "sub_chain_ms": cuda_ms(lambda: _kernels._sparse_scan_at(
+                S_, tabs, hay_[:S_].contiguous(), S_, 1, S_, halo_), 20),
+            "ms_by_carveout": by_carveout(_kernels._sparse_scan_at, S_,
+                                          args),
+        }
+
+    sizes7 = {
+        "names": k7_case(sp, cls, k7_args, am, kk2_args),
+        "names100k": k7_case(big_sp, big_cls, big_args, big_am, big_k2),
+    }
+    main7 = sizes7["names"]
     out["sparse_scan"] = {
-        "shape": f"L={L} T={T} halo={halo}, keys int64 [{E}], fail int32 "
-                 f"[{sp.fail.numel()}]",
+        "shape": f"L={L} T={T} halo={halo} S={main7['S']}, records int32 "
+                 f"[{am.num_states}, 4], {main7['edges']} edges",
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: _kernels.sparse_scan(*k7_args), 5),
-        "plain_ms": cuda_ms(
-            lambda: scan_cuda._sparse_scan_plain(*k7_args), 1, warmup=0
-        ),
-        # haystack, keys, targets, fail links and match counts read; int32
-        # states and the uint8 mask written
-        "bound_ms": bound_ms(
-            L * T * (1 + 4 + 1) + 12 * E + 8 * am.num_states
-        ),
+        "ms": main7["ms"],
+        "plain_ms": plain7_ms,
+        "bound_ms": main7["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        # one lane alone: T + halo steps of binary searches and fail walks
-        "dep_chain_ms": cuda_ms(lambda: _kernels.sparse_scan(*one_lane7), 5),
+        "matches": main7["matches"],
+        "sub_chain_ms": main7["sub_chain_ms"],
+        "ms_by_carveout": main7["ms_by_carveout"],
+        "layouts": sizes7,
     }
 
     # P1 and P2: the layout probes, on random bytes at the reference's 32
@@ -1544,7 +1645,9 @@ def main() -> int:
             "shape": k["shape"],
         })
         for extra in ("dep_chain_ms", "sub_chain_ms", "layouts", "configs",
-                      "bailout", "k2_same_layout_ms", "ms_by_carveout"):
+                      "bailout", "k2_same_layout_ms", "ms_by_carveout",
+                      "groups_ms", "groups_device_ms", "groups_bound_ms",
+                      "ms_by_cap", "kernels_per_call", "device_ms"):
             if extra in k:
                 rows[-1][extra] = k[extra]
         if key == "fire":

@@ -222,8 +222,7 @@ def test_scan_compact_sparse_equals_reference() -> None:
             jnp.int32(n), L, T, halo, cap,
         )
         got = port_scan._scan_compact_sparse(
-            pt.keys, pt.targets, pt.fail, pt.match_count,
-            torch.from_numpy(buf), n, L, T, halo, cap,
+            pt.sparse, torch.from_numpy(buf), n, L, T, halo, cap,
         )
         assert int(got[2]) == int(want[2]) > 16
         if int(want[2]) <= cap:

@@ -57,7 +57,13 @@ def _corpus(seed: int, n: int, names: list[bytes], plant: int) -> bytes:
     return bytes(hay)
 
 
-@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 100_003])
+#: K3's chunk: the mask bytes of one block
+K3_CHUNK = 16384
+
+
+@pytest.mark.parametrize(
+    "n", [0, 1, 15, 16, K3_CHUNK - 1, K3_CHUNK, K3_CHUNK + 1, 100_003]
+)
 @pytest.mark.parametrize("density", [0.001, 0.3])
 def test_compact_kernel_equals_plain(cuda, n: int, density: float) -> None:
     rng = np.random.default_rng(n)
@@ -68,6 +74,64 @@ def test_compact_kernel_equals_plain(cuda, n: int, density: float) -> None:
         torch.cuda.synchronize()
         assert int(total) == int(want_total)
         assert torch.equal(idx, want_idx)
+
+
+def test_compact_kernel_chunk_and_one_launch(cuda) -> None:
+    """The kernel's chunk is the one the tests assume, and a call is one
+    kernel on the card (the profiler sees nothing else once the look-back
+    scratch exists)."""
+    assert _kernels.build()["scan"].ac_compact_chunk() == K3_CHUNK
+    mask = torch.from_numpy(
+        np.random.default_rng(3).random(1 << 20) < 0.01
+    ).to(cuda).view(torch.uint8)
+    _kernels.compact(mask, 4096)
+    torch.cuda.synchronize()
+    before = _kernels.LAUNCHES["compact"]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _kernels.compact(mask, 4096)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert kernels == ["compact_kernel"] or (
+        len(kernels) == 1 and "compact_kernel" in kernels[0]
+    ), kernels
+    assert _kernels.LAUNCHES["compact"] == before + 1
+
+
+def test_compact_kernel_repeated_calls(cuda) -> None:
+    """Fifty calls in a row on random masks, sizes and caps reuse one
+    look-back scratch: an earlier call's status words (the same chunks,
+    now stale) must never read as ready."""
+    rng = np.random.default_rng(77)
+    for i in range(50):
+        n = int(rng.integers(0, 400_000)) if i % 5 else 300_000
+        mask = torch.from_numpy(
+            rng.random(n) < float(rng.choice([0.0005, 0.02, 0.5]))
+        ).to(cuda)
+        cap = int(rng.choice([1, 64, 4096, 1 << 17]))
+        idx, total = scan_cuda.compact_sparse(mask, cap)
+        want_idx, want_total = scan_cuda._compact_plain(mask, cap)
+        assert int(total) == int(want_total), i
+        assert torch.equal(idx, want_idx), i
+
+
+def test_compact_kernel_epoch_wraps(cuda) -> None:
+    """At the last epoch the scratch is made anew (zeroed), and the calls
+    on either side of it stay exact."""
+    mask = torch.from_numpy(
+        np.random.default_rng(5).random(200_000) < 0.01
+    ).to(cuda)
+    want = scan_cuda._compact_plain(mask, 4096)
+    _kernels.compact(mask.view(torch.uint8), 4096)
+    key = next(k for k in _kernels._COMPACT_SCRATCH if k[0] == cuda.index)
+    _kernels._COMPACT_SCRATCH[key][1] = _kernels.COMPACT_EPOCH_MAX - 2
+    for _ in range(4):
+        idx, total = _kernels.compact(mask.view(torch.uint8), 4096)
+        assert int(total) == int(want[1]) and torch.equal(idx, want[0])
+    assert _kernels._COMPACT_SCRATCH[key][1] < 10
 
 
 def test_compact_kernel_unaligned_view(cuda) -> None:
@@ -263,11 +327,73 @@ def test_sparse_kernel_equals_plain(cuda, n: int) -> None:
     buf = np.zeros(L * T, dtype=np.uint8)
     buf[:n] = np.frombuffer(body, np.uint8)
     hay = torch.from_numpy(buf).to(cuda)
-    args = (tabs.keys, tabs.targets, tabs.fail, tabs.match_count, hay, n, L,
-            T, halo)
-    st, mask = scan_cuda.sparse_scan(*args)
-    st_p, mask_p = scan_cuda._sparse_scan_plain(*args)
-    assert torch.equal(st, st_p) and torch.equal(mask, mask_p)
+    args = (tabs.sparse, hay, n, L, T, halo)
+    _assert_lane_scan_equal(
+        scan_cuda.sparse_scan(*args), scan_cuda._sparse_scan_plain(*args)
+    )
+
+
+#: K7's search paths: "wide" gives states of 26 edges (several 16-byte
+#: windows) and one of 70 (binary search), also inside fail chains
+#: ("xd", "yab"), "window" runs of 1-8 edges that cross 16-byte boundaries
+#: of the label array, "bytes" edges on all 256 bytes at the root with NUL
+#: and 0xff inside patterns
+K7_NAMES = {
+    "wide": [bytes([a, b]) + b"q" for a in b"abc" for b in
+             b"abcdefghijklmnopqrstuvwxyz"]
+    + [b"d" + bytes([c]) + b"z" for c in range(40, 110)]
+    + [b"xd", b"yab"] + _names(33, 40),
+    "window": _names(34, 300),
+    "bytes": [bytes([i, (i * 5 + 1) % 256]) for i in range(256)]
+    + [b"\x00\xffab", b"\xff\x00"],
+}
+#: haystack bytes of each K7 case
+K7_ALPHABET = {
+    "wide": bytes(range(40, 123)) + b" ",
+    "window": b"abcdefghijklmnopqrstuvwxyz q",
+    "bytes": bytes(range(256)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K7_NAMES))
+def test_sparse_kernel_equals_k2_every_sublane(cuda, case: str) -> None:
+    """K7 at every sub-lane length its wrapper takes, equal to its plain
+    version and to K2 over the classed table of the same automaton at the
+    same layout and halo (mask bit-equal, states at the mask), also on a
+    haystack one byte off its alignment."""
+    names = K7_NAMES[case]
+    am = build_automaton(names)
+    sp = scan_cuda.DeviceTables(am, "sparse", cuda)
+    cls = scan_cuda.DeviceTables(am, "classed", cuda)
+    halo = am.max_len - 1
+    L, T = 64, 512
+    n = L * T - 333
+    alphabet = K7_ALPHABET[case]
+    rng = np.random.default_rng(len(names))
+    buf = np.frombuffer(alphabet, np.uint8)[
+        rng.integers(0, len(alphabet), L * T)].copy()
+    longest = np.frombuffer(max(names, key=len), np.uint8)
+    for m in range(1, L * T // 64):  # matches across sub-lane starts
+        end = 64 * m + (m % 3)
+        buf[end + 1 - len(longest) : end + 1] = longest
+    hay = torch.from_numpy(buf).to(cuda)
+    args = (sp.sparse, hay, n, L, T, halo)
+    want = scan_cuda._sparse_scan_plain(*args)
+    assert int(want[1].sum()) > 100
+    for S in _sublane_lengths(T, halo, batch=False):
+        _assert_lane_scan_equal(_kernels._sparse_scan_at(S, *args), want)
+    got = _kernels.sparse_scan(*args)
+    _assert_lane_scan_equal(got, want)
+    _assert_lane_scan_equal(
+        _kernels.lane_scan(cls.lane_table(), cls.classes, hay, n, L, T, halo,
+                           cls.use_classes),
+        got,
+    )
+    _assert_lane_scan_equal(
+        _kernels.sparse_scan(sp.sparse, _byte_off(hay), n, L, T, halo), want
+    )
+    with pytest.raises(ValueError, match="sub-lanes"):
+        _kernels._sparse_scan_at(24, *args)
 
 
 @pytest.mark.parametrize("engine", ["dfa", "classed"])
@@ -475,7 +601,7 @@ def test_stride2_kernel_match_dense(cuda) -> None:
 
 
 def test_lane_scans_every_carveout(cuda) -> None:
-    """K2, K5 and K6 at each shared-memory carveout (the L1 split changes
+    """K2, K5, K6 and K7 at each shared-memory carveout (the L1 split changes
     only their speed) equal their own default launch; a carveout past
     100 percent is refused."""
     names = _names(49, 40) + [b"abcdefghabcdefgh"]
@@ -501,6 +627,9 @@ def test_lane_scans_every_carveout(cuda) -> None:
         "K6": (_kernels._stride2_scan_at, 64, (
             tabs.packed2, tabs.table_classed, tabs.classes2, hay, n, L, T,
             halo)),
+        "K7": (_kernels._sparse_scan_at, 64, (
+            scan_cuda.DeviceTables(am, "sparse", cuda).sparse, hay, n, L, T,
+            am.max_len - 1)),
     }
     for name, (kernel, S, args) in calls.items():
         want = kernel(S, *args)

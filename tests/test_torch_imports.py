@@ -88,3 +88,37 @@ def test_public_surface_equals_reference() -> None:
     for cls in ("AhoCorasick", "BytesAhoCorasick"):
         assert callable(getattr(getattr(ahocorasick_rs_tpu_torch, cls),
                                 "tune"))
+
+
+def _package_data_globs() -> list[str]:
+    import tomllib
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        conf = tomllib.load(f)
+    return conf["tool"]["setuptools"]["package-data"]["ahocorasick_rs_tpu_torch"]
+
+
+def test_package_data_ships_every_kernel_source() -> None:
+    """An installed port builds its kernels from ``csrc/``: every file
+    there, and every file a source includes with ``#include "..."``, is
+    matched by the port's package-data globs (the sources include the
+    shared header ``sublane.cuh``)."""
+    import fnmatch
+    import re
+
+    globs = _package_data_globs()
+    pkg = os.path.dirname(ahocorasick_rs_tpu_torch.__file__)
+    csrc = os.path.join(pkg, "csrc")
+    names = sorted(os.listdir(csrc))
+    assert any(n.endswith(".cuh") for n in names)
+    included = set()
+    for name in names:
+        with open(os.path.join(csrc, name), encoding="utf-8") as f:
+            included |= set(re.findall(r'^#include "([^"]+)"', f.read(), re.M))
+    assert included, "no source includes a local header"
+    for rel in sorted({f"csrc/{n}" for n in names}
+                      | {f"csrc/{i}" for i in included}):
+        assert os.path.exists(os.path.join(pkg, rel)), f"{rel} is missing"
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), (
+            f"{rel} is not shipped by {globs}"
+        )
