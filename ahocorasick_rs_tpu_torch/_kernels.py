@@ -3,9 +3,9 @@
 Each source under ``csrc/`` is compiled by its own ``nvcc`` process (all
 started together) into a shared library with a plain C interface, for
 ``sm_90a``.  The libraries land in ``_build/<hash>/``, where the hash
-covers the flags and every file of ``csrc/`` (the shared header
-``sublane.cuh`` too, :func:`source_hash`), so a changed file rebuilds and
-an unchanged tree loads at once.  ``ctypes``
+covers the flags and every file of ``csrc/`` (the shared headers
+``sublane.cuh`` and ``lookback.cuh`` too, :func:`source_hash`), so a
+changed file rebuilds and an unchanged tree loads at once.  ``ctypes``
 binds them, with ``c_void_p`` for every pointer and for the stream.
 
 The launchers below check device, dtype, shape and contiguity, allocate
@@ -33,7 +33,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 SOURCES = (
-    "scan.cu", "teddy.cu", "stride2.cu", "sparse.cu", "batch.cu", "probe.cu",
+    "scan.cu", "teddy.cu", "verify.cu", "stride2.cu", "sparse.cu", "batch.cu",
+    "probe.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,7 +43,8 @@ NVCC_FLAGS = (
 
 #: launches per kernel since the last :func:`reset_launches`;
 #: ``lane_scan_head`` counts the K2 launches that carry a neighbour's head
-#: (also counted under ``lane_scan``), ``shard_body`` the per-rank bodies
+#: (also counted under ``lane_scan``), ``verify`` K4's launches (the
+#: whole verify body, or its walk alone), ``shard_body`` the per-rank bodies
 #: of the sharded scan (K8) that ran on a card, ``probe_*`` the layout
 #: probes P1 and P2
 LAUNCHES: dict[str, int] = {
@@ -76,7 +78,12 @@ _SIGNATURES = {
     "ac_compact": [_P, _I64, _I32, _P, _P, _P, _I32, _P],
     "ac_compact_chunk": [],
     "ac_fire": [_P, _I32, _P, _I64, _I32, _I32, _I32, _I32, _P, _P],
-    "ac_verify": [_P, _I32, _P, _I32, _P, _I64, _P, _I32, _I32, _P, _P],
+    "ac_verify": [_P, _I32, _P, _I32, _P, _I64, _I64, _P, _I32, _I32, _I32,
+                  _I32, _I32, _I32, _P, _P],
+    "ac_verify_body": [_P, _I32, _P, _I32, _P, _I64, _I64, _P, _I32, _I32,
+                       _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P,
+                       _I32, _P],
+    "ac_verify_blocks": [_I32, _I32],
     "ac_stride2_scan": [_P, _P, _I32, _P, _P, _I64, _I32, _I32, _I32, _I32,
                         _I32, _P, _P, _P],
     "ac_sparse_scan": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
@@ -332,10 +339,32 @@ def _lane_scan_at(
 #: epochs a compaction scratch takes before it is cleared anew (the
 #: status words keep 30 bits of it)
 COMPACT_EPOCH_MAX = (1 << 30) - 1
-#: K3's look-back scratch by (device index, stream): [uint64 buffer,
-#: epoch of its last call]; kept across calls so that none clears it
+#: the look-back scratch of K3 and K4 by (device index, stream): [uint64
+#: buffer, epoch of its last launch]; kept across calls so that none
+#: clears it
 _COMPACT_SCRATCH: dict[tuple[int, int], list] = {}
 _compact_lock = threading.Lock()
+
+
+def _launch_with_lookback(dev: torch.device, nb: int, launch) -> int:
+    """Call ``launch(scratch, epoch, stream)`` with the look-back scratch of
+    this device and current stream, grown to ``1 + nb`` words (zeroed when
+    it is made or grown), and a new epoch; return its error code.  The
+    lock keeps the epochs in the launches' order."""
+    stream = _stream(dev)
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(),
+           stream)
+    with _compact_lock:
+        entry = _COMPACT_SCRATCH.get(key)
+        if (entry is None or entry[0].numel() < 1 + nb
+                or entry[1] >= COMPACT_EPOCH_MAX):
+            size = max(1 + nb, 1024,
+                       2 * entry[0].numel() if entry is not None else 0)
+            entry = _COMPACT_SCRATCH[key] = [
+                torch.zeros(size, dtype=torch.int64, device=dev), 0
+            ]
+        entry[1] += 1
+        return launch(entry[0].data_ptr(), entry[1], stream)
 
 
 def compact(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -357,23 +386,10 @@ def compact(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
     nb = -(-N // lib.ac_compact_chunk())
     idx = torch.empty(cap, dtype=torch.int32, device=dev)
     total = torch.empty(1, dtype=torch.int32, device=dev)
-    stream = _stream(dev)
-    key = (dev.index if dev.index is not None else torch.cuda.current_device(),
-           stream)
-    with _compact_lock:  # the epoch's order is the launches' order
-        entry = _COMPACT_SCRATCH.get(key)
-        if (entry is None or entry[0].numel() < 1 + nb
-                or entry[1] >= COMPACT_EPOCH_MAX):
-            size = max(1 + nb, 1024,
-                       2 * entry[0].numel() if entry is not None else 0)
-            entry = _COMPACT_SCRATCH[key] = [
-                torch.zeros(size, dtype=torch.int64, device=dev), 0
-            ]
-        entry[1] += 1
-        err = lib.ac_compact(
-            mask.data_ptr(), N, cap, idx.data_ptr(), total.data_ptr(),
-            entry[0].data_ptr(), entry[1], stream,
-        )
+    err = _launch_with_lookback(dev, nb, lambda scratch, epoch, stream: (
+        lib.ac_compact(mask.data_ptr(), N, cap, idx.data_ptr(),
+                       total.data_ptr(), scratch, epoch, stream)
+    ))
     _raise_on(err, "compact")
     LAUNCHES["compact"] += 1
     return idx, total
@@ -422,30 +438,149 @@ def fire(
     return out
 
 
-def verify(
+#: most pieces :func:`plan_pieces` cuts a K4 window into
+VERIFY_MAX_PIECES = 8
+
+
+def verify_split(W: int, halo: int, k: int) -> tuple[int, int]:
+    """K4's cut of a ``W``-step window into ``k`` pieces, as ``(L, D)``:
+    piece 0 owns steps ``[0, L)``, piece ``p >= 1`` owns ``[L + (p-1)*D,
+    L + p*D)`` clipped to ``W`` and walks from the root at ``halo`` steps
+    before its first (never before step 0).  ``D = L - halo``, so every
+    piece walks ``L`` steps: ``L`` is the least with ``k*L - (k-1)*halo
+    >= W``."""
+    L = -(-(W + (k - 1) * halo) // k)
+    return L, L - halo
+
+
+def verify_piece_bounds(
+    W: int, halo: int, k: int
+) -> list[tuple[int, int, int]]:
+    """Each piece's ``(first step walked, first step owned, end)`` under
+    :func:`verify_split`, as the kernel computes them."""
+    L, D = verify_split(W, halo, k)
+    out = []
+    for p in range(k):
+        lo = 0 if p == 0 else min(W, L + (p - 1) * D)
+        out.append((max(0, lo - halo), lo, min(W, L + p * D)))
+    return out
+
+
+def plan_pieces(M: int, W: int, halo: int, sms: int) -> int:
+    """K4's pieces a window for ``M`` windows: the least ``k`` whose
+    ``M*k`` walks reach 7/8 of ``sms * SM_THREADS`` (as
+    :func:`plan_sublanes` fills the card), at most
+    :data:`VERIFY_MAX_PIECES`, and only while every piece owns a step and
+    the pieces walk at most twice the window's steps in all (each piece
+    past the first walks ``halo`` steps it does not own)."""
+    best = 1
+    for k in range(2, VERIFY_MAX_PIECES + 1):
+        if M * (k - 1) * 8 >= 7 * sms * SM_THREADS:
+            break
+        L, D = verify_split(W, halo, k)
+        if D < 1 or L + (k - 2) * D >= W or k * L > 2 * W:
+            break
+        best = k
+    return best
+
+
+def _verify_args(
     vtable: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
-    fire_pos: torch.Tensor, n: int, W: int, use_classes: bool,
-) -> torch.Tensor:
-    """K4: packed walk int32 [cap, W] (next state | has_match << 24)."""
+    fire_pos: torch.Tensor, n: int, W: int, halo: Optional[int],
+    pieces: Optional[int], name: str,
+) -> tuple[int, int, int, int, int]:
+    """Check K4's inputs; return ``(M, halo, k, L, D)``."""
     dev = hay.device
     if dev.type != "cuda":
-        raise ValueError("verify kernel needs CUDA tensors")
+        raise ValueError(f"{name} kernel needs CUDA tensors")
     _check("vtable", vtable, torch.int32, dev, 2)
     _check("classes", classes, torch.int32, dev, 1)
     _check("hay", hay, torch.uint8, dev, 1)
     _check("fire_pos", fire_pos, torch.int32, dev, 1)
     if classes.numel() != 257 or not 0 <= n <= hay.numel() or W < 1:
-        raise ValueError("verify: bad classes, n or W")
-    cap = fire_pos.numel()
-    out = torch.empty((cap, W), dtype=torch.int32, device=dev)
-    lib = build()["teddy"]
+        raise ValueError(f"{name}: bad classes, n or W")
+    M = fire_pos.numel()
+    if M < 1 or M * W >= 1 << 31:
+        raise ValueError(f"{name}: {M} windows of {W} steps out of range")
+    if vtable.shape[0] >= 1 << FLAG_SHIFT:
+        raise ValueError(
+            f"{name}: {vtable.shape[0]} states do not fit the flagged table "
+            f"(below 2**{FLAG_SHIFT})"
+        )
+    halo = W - 1 if halo is None else halo
+    k = plan_pieces(M, W, halo, sm_count(dev)) if pieces is None else pieces
+    if halo < 0 or not 1 <= k <= 64 or M * k >= 1 << 31:
+        raise ValueError(f"{name}: halo={halo}, pieces={k} out of range")
+    L, D = verify_split(W, halo, k)
+    if k > 1 and D < 1:
+        raise ValueError(f"{name}: {k} pieces of a {W}-step window need a "
+                         f"halo below {W}, not {halo}")
+    return M, halo, k, L, D
+
+
+def verify(
+    vtable: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
+    fire_pos: torch.Tensor, n: int, W: int, use_classes: bool,
+    halo: Optional[int] = None, pieces: Optional[int] = None,
+) -> torch.Tensor:
+    """K4's walk alone: packed walk int32 [cap, W] (next state | has_match
+    << 24), from the walk-only instantiation of :func:`verify_body`'s
+    kernel.  ``halo`` (the automaton's ``max_len - 1``; by default ``W -
+    1``, which any walk satisfies) and ``pieces`` (by default
+    :func:`plan_pieces`) cut each window as :func:`verify_split` says; the
+    walk does not depend on them."""
+    dev = hay.device
+    M, halo, k, L, D = _verify_args(
+        vtable, classes, hay, fire_pos, n, W, halo, pieces, "verify"
+    )
+    out = torch.empty((M, W), dtype=torch.int32, device=dev)
+    lib = build()["verify"]
     _raise_on(lib.ac_verify(
         vtable.data_ptr(), vtable.shape[1], classes.data_ptr(),
-        int(use_classes), hay.data_ptr(), n, fire_pos.data_ptr(), cap, W,
-        out.data_ptr(), _stream(dev),
+        int(use_classes), hay.data_ptr(), hay.numel(), n,
+        fire_pos.data_ptr(), M, W, halo, k, L, D, out.data_ptr(),
+        _stream(dev),
     ), "verify")
     LAUNCHES["verify"] += 1
     return out
+
+
+def verify_body(
+    vtable: torch.Tensor, classes: torch.Tensor, hay: torch.Tensor,
+    fire_pos: torch.Tensor, n: int, W: int, cap2: int, use_classes: bool,
+    halo: Optional[int] = None, pieces: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4: the whole Teddy verify body in one launch.  Walks the ``W``-step
+    window at each ``fire_pos`` (-1: an empty window) and returns the
+    matched steps in ascending ``window*W + step`` order as ``(win, step,
+    st)`` int32 [cap2] and their exact count ``total`` int32 [1]; entries
+    past ``min(total, cap2)`` hold ``(-1, 0, packed[0] & 0xFFFFFF)``, as
+    ``ops/scan_teddy.py`` ``_verify_body`` gives them.  ``halo`` and
+    ``pieces`` as :func:`verify`; the outputs do not depend on them as
+    long as ``halo`` is at least the automaton's ``max_len - 1``.  The
+    look-back scratch and its epochs are K3's (:func:`compact`)."""
+    dev = hay.device
+    M, halo, k, L, D = _verify_args(
+        vtable, classes, hay, fire_pos, n, W, halo, pieces, "verify_body"
+    )
+    if cap2 < 1:
+        raise ValueError(f"verify_body: cap2={cap2} < 1")
+    lib = build()["verify"]
+    out = torch.empty(3 * cap2 + 1, dtype=torch.int32, device=dev)
+    win, step, st, total = out.split((cap2, cap2, cap2, 1))
+    nb = lib.ac_verify_blocks(M, k)
+    err = _launch_with_lookback(dev, nb, lambda scratch, epoch, stream: (
+        lib.ac_verify_body(
+            vtable.data_ptr(), vtable.shape[1], classes.data_ptr(),
+            int(use_classes), hay.data_ptr(), hay.numel(), n,
+            fire_pos.data_ptr(), M, W, halo, k, L, D, cap2, win.data_ptr(),
+            step.data_ptr(), st.data_ptr(), total.data_ptr(), scratch, epoch,
+            stream,
+        )
+    ))
+    _raise_on(err, "verify_body")
+    LAUNCHES["verify"] += 1
+    return win, step, st, total
 
 
 def stride2_scan(

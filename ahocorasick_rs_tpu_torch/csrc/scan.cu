@@ -54,20 +54,23 @@
 //   look-back one after another, and that, not the bytes, bounds the rate:
 //   in a trial on an H100, a block-wide look-back, a warp's look-back of
 //   64-256 chunks a step, 8 or 32 KiB chunks, coalesced (striped) loads,
-//   eight blocks an SM and a spin back-off ran no faster.  Then it scatters its indexes in
-//   ascending order straight from registers (none past `cap`).  Blocks
+//   eight blocks an SM and a spin back-off ran no faster.  Then it
+//   scatters its indexes in ascending order straight from registers (none past `cap`).  Blocks
 //   past the last chunk pad `idx` with -1 from min(total, cap) to `cap`,
 //   16,384 entries each, once the last chunk's prefix is out; the last
 //   chunk writes the exact total, also when it exceeds `cap`.
-//   The ticket counter and the status words live in scratch that the
-//   wrapper keeps per device and stream (_kernels.py `compact`): the last
-//   ticket resets the counter, and each word carries the call's epoch, so
-//   a word from an earlier call never reads as ready and nothing has to
-//   be cleared between calls.
+//   The ticket, the block scan and the look-back are lookback.cuh's,
+//   shared with the fused Teddy verify body (K4, verify.cu).  The ticket
+//   counter and the status words live in scratch that the wrapper keeps
+//   per device and stream (_kernels.py `_COMPACT_SCRATCH`, the same
+//   scratch K4 takes): the last ticket resets the counter, and each word
+//   carries the call's epoch, so a word from an earlier call never reads
+//   as ready and nothing has to be cleared between calls.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
 #include "sublane.cuh"
 
 namespace {
@@ -82,8 +85,6 @@ constexpr int kPer = 64;                 // mask bytes a thread
 constexpr int kWords = kPer / 4;
 constexpr int kChunk = kThreads * kPer;  // mask bytes a block
 constexpr int kPadPer = 16384;           // idx entries a padding block
-// status word: epoch << 34 | flag << 32 | value
-constexpr uint32_t kAggregate = 1, kInclusive = 2;
 // K2's shared-memory carveout (sublane.cuh `set_carveout`): 43 percent
 // asks for 100 KB, three blocks an SM and about 156 KB of L1 for the
 // table's hot rows.  The fastest split in chip_smoke.py's sweep on an
@@ -144,104 +145,9 @@ lane_scan_kernel(const int32_t* __restrict__ ftable, int32_t ncols,
       });
 }
 
-// Exclusive scan of one int per thread across a block of kThreads.
-__device__ int32_t block_exclusive_scan(int32_t v, int32_t* warp_sums,
-                                        int32_t* block_total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int32_t x = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int32_t y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    constexpr int nw = kThreads / 32;
-    int32_t w = lane < nw ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int32_t y = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += y;
-    }
-    if (lane < nw) warp_sums[lane] = w;  // inclusive warp prefix
-    if (lane == nw - 1) *block_total = w;
-  }
-  __syncthreads();
-  const int32_t before = warp ? warp_sums[warp - 1] : 0;
-  return before + x - v;
-}
-
 // 0x80 in each nonzero byte of w, 0 elsewhere.
 __device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
   return (((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) & 0x80808080u;
-}
-
-__device__ __forceinline__ unsigned long long load_status(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* p,
-                                             uint32_t epoch, uint32_t flag,
-                                             int32_t value) {
-  const unsigned long long v =
-      (static_cast<unsigned long long>(epoch) << 34) |
-      (static_cast<unsigned long long>(flag) << 32) |
-      static_cast<uint32_t>(value);
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-// The flag of a status word of this epoch (0: not ready) and its value.
-__device__ __forceinline__ uint32_t status_flag(unsigned long long w,
-                                                uint32_t epoch) {
-  return static_cast<uint32_t>(w >> 34) == epoch
-             ? static_cast<uint32_t>(w >> 32) & 3
-             : 0;
-}
-
-// Warp 0 of chunk `ticket`: the sum of the counts of every chunk before
-// it, by decoupled look-back over `status` (agg is this chunk's count),
-// 32 chunks a step, lane l reading chunk j - l.  Lane 0 publishes the
-// chunk's count first and its inclusive prefix last.
-__device__ int32_t look_back(unsigned long long* status, int32_t ticket,
-                             uint32_t epoch, int32_t agg) {
-  const int lane = threadIdx.x & 31;
-  if (ticket == 0) {
-    if (lane == 0) store_status(status, epoch, kInclusive, agg);
-    return 0;
-  }
-  if (lane == 0) store_status(status + ticket, epoch, kAggregate, agg);
-  int32_t excl = 0;
-  for (int32_t j = ticket - 1;; j -= 32) {
-    const int32_t k = j - lane;  // lane 0 the nearest chunk
-    uint32_t flag;
-    int32_t v;
-    do {  // until all 32 chunks have published; before chunk 0 reads 0
-      if (k >= 0) {
-        const unsigned long long w = load_status(status + k);
-        flag = status_flag(w, epoch);
-        v = static_cast<int32_t>(static_cast<uint32_t>(w));
-      } else {
-        flag = kInclusive;
-        v = 0;
-      }
-    } while (__any_sync(0xffffffffu, flag == 0));
-    // the nearest inclusive prefix, if any: it and the counts after it
-    const uint32_t incl = __ballot_sync(0xffffffffu, flag == kInclusive);
-    const int last = incl ? __ffs(incl) - 1 : 31;
-    excl += __reduce_add_sync(0xffffffffu, lane <= last ? v : 0);
-    if (incl) break;
-  }
-  if (lane == 0) store_status(status + ticket, epoch, kInclusive, excl + agg);
-  return excl;
 }
 
 // scratch[0] is the ticket counter, scratch[1 + c] chunk c's status word.
@@ -253,26 +159,13 @@ compact_kernel(const uint8_t* __restrict__ mask, int64_t N, bool vec,
   __shared__ int32_t warp_sums[kThreads / 32];
   __shared__ int32_t s_agg, s_excl, s_ticket;
   unsigned long long* status = scratch + 1;
-  if (threadIdx.x == 0) {
-    const int32_t t = static_cast<int32_t>(atomicAdd(scratch, 1ull));
-    if (t == blocks - 1) atomicExch(scratch, 0ull);  // every ticket is out
-    s_ticket = t;
-  }
+  if (threadIdx.x == 0) s_ticket = lookback::take_ticket(scratch, blocks);
   __syncthreads();
   const int32_t ticket = s_ticket;
   if (ticket >= nb) {  // a padding block: wait for the total
     if (threadIdx.x == 0) {
-      int32_t total = 0;
-      if (nb > 0) {
-        unsigned long long w;
-        do {
-          w = load_status(status + nb - 1);
-        } while (status_flag(w, epoch) != kInclusive);
-        total = static_cast<int32_t>(static_cast<uint32_t>(w));
-      } else if (ticket == 0) {
-        *total_out = 0;  // an empty mask
-      }
-      s_agg = total;
+      s_agg = lookback::wait_total(status, nb, epoch);
+      if (nb == 0 && ticket == 0) *total_out = 0;  // an empty mask
     }
     __syncthreads();
     const int64_t k = ticket - nb, first = min(s_agg, cap);
@@ -310,9 +203,10 @@ compact_kernel(const uint8_t* __restrict__ mask, int64_t N, bool vec,
   int32_t c = 0;
 #pragma unroll
   for (int i = 0; i < kWords; ++i) c += __popc(nonzero_bytes(w[i]));
-  const int32_t before = block_exclusive_scan(c, warp_sums, &s_agg);
+  const int32_t before =
+      lookback::block_exclusive_scan<kThreads>(c, warp_sums, &s_agg);
   if (threadIdx.x < 32) {
-    const int32_t excl = look_back(status, ticket, epoch, s_agg);
+    const int32_t excl = lookback::look_back(status, ticket, epoch, s_agg);
     if (threadIdx.x == 0) {
       s_excl = excl;
       if (ticket == nb - 1) *total_out = excl + s_agg;

@@ -1,4 +1,4 @@
-// Teddy fire mask (K1) and windowed verify walk (K4) for Hopper.
+// Teddy fire mask (K1) for Hopper.
 //
 // Plain C entry points, built with nvcc into a shared library and called
 // through ctypes (ahocorasick_rs_tpu_torch/_kernels.py).  Every entry
@@ -42,25 +42,14 @@
 //   whatever the tile, so the mask is the same for every tile.  Above 48
 //   KiB of shared memory the launch raises the kernel's limit first.
 //
-// K4 ac_verify replaces ahocorasick_rs_tpu/ops/scan_teddy.py
-// `_verify_body` up to the packed walk output.
-//   What it computes: for window i starting at fire_pos[i], W steps from
-//   the root through vtable (next state | has_match << 24).  Bytes at or
-//   past n, and every byte of a window whose fire_pos is negative, read as
-//   PAD_BYTE before the classes map.
-//   Bound: one dependent vtable load per window step (a latency chain),
-//   plus writing the [cap, W] int32 walk.
-//   Design: one thread per window with its state in a register, reading
-//   the haystack directly with a bounds check (no padded copy of the
-//   haystack is made).  Rows are written row-major so that a flat index
-//   gives window = index / W and step = index % W.
+// K4, the Teddy verify body, is verify.cu's (ac_verify_body, and the
+// walk alone, ac_verify).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kPad = 256;
 constexpr int kFireThreads = 256;
 constexpr int kFirePer = 16;           // positions a thread takes
 constexpr int kFireTail = 16;          // bytes staged past a tile (>= m - 1)
@@ -69,7 +58,6 @@ constexpr int kMaxRows = 256;          // raw rows: passes * 2 * m * words
 constexpr int kMaxM = 8;
 constexpr int kStaticSmemLimit = 48 << 10;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int32_t kStateMask = (1 << 24) - 1;
 
 // 16 bytes to shared memory; only `src_bytes` (0-16) are read, the rest
 // of the 16 are zero-filled
@@ -204,29 +192,6 @@ fire_kernel(const uint4* __restrict__ packed, int32_t entries,
   }
 }
 
-__global__ void verify_kernel(const int32_t* __restrict__ vtable,
-                              int32_t ncols,
-                              const int32_t* __restrict__ classes,
-                              int32_t use_classes,
-                              const uint8_t* __restrict__ hay, int64_t n,
-                              const int32_t* __restrict__ fire_pos,
-                              int32_t cap, int32_t W,
-                              int32_t* __restrict__ out) {
-  const int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cap) return;
-  const int64_t fp = fire_pos[i];
-  int32_t* row = out + static_cast<int64_t>(i) * W;
-  int32_t s = 0;
-  for (int32_t j = 0; j < W; ++j) {
-    const int64_t src = fp + j;
-    int32_t b = (fp < 0 || src >= n) ? kPad : static_cast<int32_t>(hay[src]);
-    if (use_classes) b = __ldg(classes + b);
-    const int32_t v = __ldg(vtable + static_cast<int64_t>(s) * ncols + b);
-    row[j] = v;
-    s = v & kStateMask;
-  }
-}
-
 // `tables` is the packed table: [passes][m][2][16] entries of `words`
 // uint32 padded to 4 or 8 (ops/scan_teddy.py `pack_fire_tables`); `rows`
 // is the raw table's row count, passes * 2 * m * words.
@@ -281,22 +246,6 @@ int ac_fire(const void* tables, int32_t rows, const void* hay, int64_t N,
   return words <= 4
              ? launch_fire<1>(tables, hay, N, m, passes, tile_len, out, s)
              : launch_fire<2>(tables, hay, N, m, passes, tile_len, out, s);
-}
-
-int ac_verify(const void* vtable, int32_t ncols, const void* classes,
-              int32_t use_classes, const void* hay, int64_t n,
-              const void* fire_pos, int32_t cap, int32_t W, void* out,
-              void* stream) {
-  const int threads = 128;
-  const int blocks = (cap + threads - 1) / threads;
-  if (blocks > 0)
-    verify_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(vtable), ncols,
-        static_cast<const int32_t*>(classes), use_classes,
-        static_cast<const uint8_t*>(hay), n,
-        static_cast<const int32_t*>(fire_pos), cap, W,
-        static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

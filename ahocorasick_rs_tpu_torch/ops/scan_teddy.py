@@ -11,11 +11,13 @@ Pipeline (device):
 2. **Compaction** (K3): the fire mask is OR-reduced over ``COARSE``-byte
    groups and the fired groups are compacted on the device (capacity +
    exact-count retry, as in ``scan_cuda``).
-3. **Verification** (K4): every fired group start ``i`` is a candidate
-   match start.  The window ``hay[i : i+W]`` is walked from the root with
-   the engine's transition table; a window match of length ``j`` at step
-   ``j`` has start exactly ``i``.  Each true occurrence fires at its start,
-   lands in exactly one window, and is emitted exactly once.
+3. **Verification** (K4, ``csrc/verify.cu``, one launch): every fired
+   group start ``i`` is a candidate match start.  The window
+   ``hay[i : i+W]`` is walked from the root with the engine's transition
+   table, and the matched steps are compacted in order inside the same
+   kernel; a window match of length ``j`` at step ``j`` has start exactly
+   ``i``.  Each true occurrence fires at its start, lands in exactly one
+   window, and is emitted exactly once.
 
 The result is the complete occurrence set (pids, starts, ends) in canonical
 (end asc, len desc, pid asc) order — identical to the dense scan's output.
@@ -167,7 +169,18 @@ def _verify_body(
     (see :class:`TeddyScanner`), so the walk yields the match flag with
     the next state.  fire_pos: int32 [M] (-1 padded).  Returns
     (win_idx[cap2], step[cap2], state[cap2], total).
+
+    On a card this is K4's one launch (``_kernels.verify_body``), which
+    walks each window in pieces; on the CPU, the walk and K3's plain
+    versions below.
     """
+    if hay.device.type != "cpu":
+        # W is max_len + COARSE - 1 on every caller, so the W - COARSE
+        # bytes before a step decide its state with the step's own
+        return _kernels.verify_body(
+            vtable, classes, hay, fire_pos, n, W, cap2, use_classes,
+            halo=max(W - COARSE, 0),
+        )
     packed = verify_walk(vtable, classes, hay, fire_pos, n, W, use_classes)
     matched = packed.reshape(-1) >= (1 << FLAG_SHIFT)
     sel, total = compact_sparse(matched, cap2)

@@ -13,7 +13,10 @@ ranks' layouts against its own single-device output, K5 at the LONG and
 SHORT batches and a rank's row block, K6 also against K2 at its layout and
 on the bailout's match-dense input, K7 also against K2 at its layout for
 the names and for 100,000 names over 16 MiB; K3 at three caps and as one
-kernel a call) and times both.
+kernel a call; K4, the whole Teddy verify body in one launch, against the
+plain ``_verify_body`` in all four outputs at cap2 above and below the
+total, at every piece count, on a sharded rank's padded buffer, and its
+walk alone against the plain walk) and times both.
 Then it drives every device path through the public API and checks every
 answer against the port's own host tier: ``find_matches_as_indexes`` on a
 64 MiB corpus with 1,000 name patterns (the upstream benchmark's LONG
@@ -192,12 +195,17 @@ def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def profiled(fn, reps: int = 20) -> tuple[float, float]:
+def profiled(fn, reps: int = 20, only: str | None = None
+             ) -> tuple[float, float]:
     """CUDA kernels a call of ``fn`` runs (copies and fills left out) and
     their device time a call (ms), from ``torch.profiler`` over ``reps``
     calls after a warm-up call: the kernel's own time, which ``cuda_ms``
     cannot give where the host takes longer to launch it than the card to
-    run it."""
+    run it.  With ``only``, a call must run that one kernel: every kernel
+    seen is it, and it is seen at most ``reps`` times.  The profiler can
+    lose the record of a kernel of a few microseconds (one of twenty in a
+    run on an H100), so fewer than one a call is a lost record, not a
+    missing launch; the launch counters check the launches."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -210,6 +218,11 @@ def profiled(fn, reps: int = 20) -> tuple[float, float]:
              if e.device_type == torch.autograd.DeviceType.CUDA
              and not e.name.startswith(("Memcpy", "Memset"))]
     require(found, "the profiler saw no kernel")
+    if only is not None:
+        names = sorted({e.name for e in found})
+        require(all(only in name for name in names) and len(found) <= reps,
+                f"{len(found)} kernels in {reps} calls, not one {only} a "
+                f"call: {names}")
     us = sum(e.time_range.end - e.time_range.start for e in found)
     return len(found) / reps, us / reps / 1e3
 
@@ -219,6 +232,48 @@ def tables_bytes(t) -> int:
     match counts."""
     return sum(x.numel() * x.element_size()
                for x in (t.table, t.classes, t.match_count))
+
+
+def unfused_body(scan_teddy, walk, compact, v_args, cap2, use_classes):
+    """The verify body composed of separate launches, as ``_verify_body``
+    composes it on the CPU: ``walk`` (the packed walk [M, W]), the
+    matched-step compare, ``compact`` (K3 or its plain version) and the
+    gathers."""
+    W = v_args[5]
+    packed = walk(*v_args, use_classes)
+    matched = packed.reshape(-1) >= (1 << scan_teddy.FLAG_SHIFT)
+    sel, total = compact(matched.view(torch.uint8), cap2)
+    win = torch.where(sel >= 0, sel // W, -1)
+    step = torch.where(sel >= 0, sel % W, 0)
+    st = packed.reshape(-1)[sel.clamp(min=0).long()] & (
+        (1 << scan_teddy.FLAG_SHIFT) - 1)
+    return win, step, st, total
+
+
+def plain_body_check(scan_teddy, v_args, cap2, use_classes) -> dict:
+    """K4 (``_verify_body`` on the card, one launch) against the plain
+    ``_verify_body`` on CPU copies of the same inputs, all four outputs
+    bit-equal: at ``cap2`` grown as ``TeddyScanner.occurrences`` grows it
+    (above the total) and at half the total (below it)."""
+    cpu = tuple(a.cpu() if torch.is_tensor(a) else a for a in v_args)
+
+    def err_at(c: int):
+        got = scan_teddy._verify_body(*v_args, c, use_classes)
+        want = scan_teddy._verify_body(*cpu, c, use_classes)
+        return got, int(want[3]), max(max_abs_err(a.cpu(), b)
+                                      for a, b in zip(got, want))
+
+    got, total, err = err_at(cap2)
+    while total > cap2:
+        cap2 = scan_teddy._bucket(total)
+        got, total, err = err_at(cap2)
+    below = max(total // 2, 1)
+    err_below = err_at(below)[2] if total > 1 else 0
+    require(err == 0 and err_below == 0,
+            f"K4 differs from the plain _verify_body ({err} at cap2 {cap2}, "
+            f"{err_below} at {below})")
+    return {"got": got, "cap2": cap2, "total": total, "below": below,
+            "max_abs_err": max(err, err_below)}
 
 
 def phase_kernels(dev, names, corpus, long_batch) -> dict:
@@ -328,29 +383,107 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
     groups_shape = f"mask uint8 [{G}] ({ftotal} true), cap={cap}"
     cap_g = cap
     groups_per_call, groups_dev_ms = profiled(
-        lambda: _kernels.compact(fired_u8, cap_g))
+        lambda: _kernels.compact(fired_u8, cap_g), only="compact_kernel")
 
-    # K4: verify walk over the fired windows, W = max_len + COARSE - 1
+    # K4: the whole verify body in one launch over the fired windows, W =
+    # max_len + COARSE - 1, each window cut into the planned pieces; held
+    # bit-equal (all four outputs, padding too) to the plain _verify_body
+    # on CPU copies of the same inputs, at cap2 above and below the total
     W = am.max_len + scan_teddy.COARSE - 1
+    halo = am.max_len - 1
     fire_pos = torch.where(fg >= 0, fg * scan_teddy.COARSE, -1)
     flat = hay2d.reshape(-1)
-    v_args = (sc.vtable, sc.classes, flat, fire_pos, n, W, sc.use_classes)
-    got = _kernels.verify(*v_args)
-    want = scan_teddy._verify_walk_plain(*v_args)
-    err = max_abs_err(got, want)
-    require(err == 0, f"K4 verify differs from its plain version ({err})")
+    v_args = (sc.vtable, sc.classes, flat, fire_pos, n, W)
+    k4 = plain_body_check(scan_teddy, v_args, sc.match_cap, sc.use_classes)
+    cap2 = k4["cap2"]
+    body_args = (*v_args, cap2, sc.use_classes)
+    pieces = _kernels.plan_pieces(cap, W, halo, _kernels.sm_count(dev))
+    before = dict(_kernels.LAUNCHES)
+    scan_teddy._verify_body(*body_args)
+    require(_kernels.LAUNCHES["verify"] == before["verify"] + 1
+            and _kernels.LAUNCHES["compact"] == before["compact"],
+            "a _verify_body call is not one verify launch and no compact")
+    # the walk-only instantiation, at the main path's pieces and at one
+    want_walk = scan_teddy._verify_walk_plain(*v_args, sc.use_classes)
+    walk_err = max(
+        max_abs_err(_kernels.verify(*v_args, sc.use_classes, halo=halo,
+                                    pieces=k), want_walk)
+        for k in (1, pieces)
+    )
+    require(walk_err == 0, f"K4's walk differs from the plain walk "
+                           f"({walk_err})")
+    # a sharded rank's hay_pad (shard, the right neighbour's head, VCHUNK
+    # zeros), with a window ending at its last byte
+    rows, Hr = sharded.teddy_layout(n, SHARD_RANKS, W)
+    LT = rows * 128
+    hay_pad = torch.cat([flat[:LT], flat[LT : LT + Hr],
+                         flat.new_zeros(scan_teddy.VCHUNK)])
+    fp_pad = torch.where((fire_pos >= 0) & (fire_pos < LT), fire_pos, -1)
+    fp_pad[-1] = hay_pad.numel() - W
+    pad_err = plain_body_check(
+        scan_teddy, (sc.vtable, sc.classes, hay_pad, fp_pad,
+                     hay_pad.numel(), W), sc.match_cap, sc.use_classes,
+    )["max_abs_err"]
+    require(pad_err == 0, f"K4 on a sharded hay_pad differs ({pad_err})")
+    # one window (the first fired one) cut into the planned pieces, and
+    # walked whole: a piece's chain of L steps and the window's of W, the
+    # floors of this design and of one thread a window (device time)
+    one = (sc.vtable, sc.classes, flat, fire_pos[:1].contiguous(), n, W,
+           cap2, sc.use_classes)
+    by_pieces, dev_by_pieces = {}, {}
+    for k in range(1, 9):
+        got_k = _kernels.verify_body(*body_args, halo=halo, pieces=k)
+        require(max(max_abs_err(a, b) for a, b in zip(got_k, k4["got"]))
+                == 0, f"K4 at {k} pieces differs")
+        by_pieces[k] = cuda_ms(
+            lambda: _kernels.verify_body(*body_args, halo=halo, pieces=k),
+            20)
+        dev_by_pieces[k] = profiled(
+            lambda: _kernels.verify_body(*body_args, halo=halo, pieces=k))[1]
+    walk_k1 = (*v_args, sc.use_classes)
+    per_call, body_dev_ms = profiled(
+        lambda: scan_teddy._verify_body(*body_args), only="verify_kernel")
+    unfused = (scan_teddy, _kernels.verify, _kernels.compact, v_args, cap2,
+               sc.use_classes)
+    unfused_per_call, unfused_dev_ms = profiled(
+        lambda: unfused_body(*unfused))
     out["verify"] = {
         "shape": f"fire_pos int32 [{cap}] ({ftotal} windows), W={W}, "
-                 f"vtable int32 {list(sc.vtable.shape)}",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: _kernels.verify(*v_args), 20),
-        "plain_ms": cuda_ms(
-            lambda: scan_teddy._verify_walk_plain(*v_args), 2
-        ),
-        # window bytes + fire positions read, the walk of the real
-        # windows written; tables left out (which rows a walk touches
-        # depends on the data, and they stay in L2)
-        "bound_ms": bound_ms(ftotal * W + 4 * ftotal + 4 * ftotal * W),
+                 f"halo={halo}, {pieces} pieces of "
+                 f"{_kernels.verify_split(W, halo, pieces)[0]} steps, cap2="
+                 f"{cap2} ({k4['total']} matched steps), vtable int32 "
+                 f"{list(sc.vtable.shape)}",
+        "max_abs_err": max(k4["max_abs_err"], walk_err, pad_err),
+        "cap2_below_total": k4["below"],
+        "pieces": pieces,
+        # back-to-back calls (CUDA events), which the host's launch rate
+        # bounds, then the kernels' own time (torch.profiler)
+        "ms": cuda_ms(lambda: scan_teddy._verify_body(*body_args), 20),
+        "device_ms": body_dev_ms,
+        "kernels_per_call": per_call,
+        # the parent's composition on the card: the walk kernel writing
+        # [cap, W], the compare, K3, the gathers
+        "unfused_ms": cuda_ms(lambda: unfused_body(*unfused), 20),
+        "unfused_device_ms": unfused_dev_ms,
+        "unfused_kernels_per_call": unfused_per_call,
+        "walk_ms": cuda_ms(lambda: _kernels.verify(*walk_k1), 20),
+        "walk_device_ms": profiled(lambda: _kernels.verify(*walk_k1))[1],
+        "ms_by_pieces": by_pieces,
+        "device_ms_by_pieces": dev_by_pieces,
+        "piece_chain_ms": profiled(
+            lambda: _kernels.verify_body(*one, halo=halo, pieces=pieces))[1],
+        "window_chain_ms": profiled(
+            lambda: _kernels.verify_body(*one, halo=halo, pieces=1))[1],
+        # the plain composition on the card: the plain walk and plain K3
+        "plain_ms": cuda_ms(lambda: unfused_body(
+            scan_teddy, scan_teddy._verify_walk_plain,
+            scan_cuda._compact_plain, v_args, cap2, sc.use_classes), 2),
+        # the 16-byte pieces of each real window and the fire positions
+        # read, three int32 a cap2 entry and the total written; tables
+        # left out (which rows a walk touches depends on the data, and
+        # they stay in L2)
+        "bound_ms": bound_ms(ftotal * 16 * -(-W // 16) + 4 * cap
+                             + 12 * cap2 + 4),
         "bound_by": "bytes",
         "library_ms": None,
     }
@@ -476,7 +609,8 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
     require(int(total) == int(total_p), "K3 total differs (lanes)")
     err = max_abs_err(idx, idx_p)
     require(err == 0, f"K3 compact differs from its plain version ({err})")
-    per_call, dev_ms = profiled(lambda: _kernels.compact(lm, cap))
+    per_call, dev_ms = profiled(lambda: _kernels.compact(lm, cap),
+                                only="compact_kernel")
     ms_by_cap = {}
     for big in (1 << 17, 1 << 23):
         idx_b, total_b = _kernels.compact(lm, big)
@@ -500,13 +634,12 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
         "groups_shape": groups_shape,
         "groups_ms": groups_ms,
         "groups_device_ms": groups_dev_ms,
+        "groups_kernels_per_call": groups_per_call,
         "groups_bound_ms": bound_ms(G + 4 * cap_g + 4),
         "ms_by_cap": ms_by_cap,
         "kernels_per_call": per_call,
         "device_ms": dev_ms,
     }
-    require(per_call == 1 == groups_per_call,
-            f"K3 ran {per_call} / {groups_per_call} kernels a call, not one")
 
     # K6: stride-2 scan at the dense path's layout, classed tables (the
     # dense phase runs ContiguousNFA; its 19.6 MiB pair table fits the
@@ -1482,7 +1615,7 @@ KERNELS = {
                   "ahocorasick_rs_tpu/ops/scan_jax.py:72"),
     "compact": ("K3 compact", "ahocorasick_rs_tpu_torch/csrc/scan.cu",
                 "ahocorasick_rs_tpu/ops/scan_jax.py:94"),
-    "verify": ("K4 verify", "ahocorasick_rs_tpu_torch/csrc/teddy.cu",
+    "verify": ("K4 verify", "ahocorasick_rs_tpu_torch/csrc/verify.cu",
                "ahocorasick_rs_tpu/ops/scan_teddy.py:245"),
     "batch_scan": ("K5 batch_scan", "ahocorasick_rs_tpu_torch/csrc/batch.cu",
                    "ahocorasick_rs_tpu/ops/scan_jax.py:180"),
@@ -1647,7 +1780,12 @@ def main() -> int:
         for extra in ("dep_chain_ms", "sub_chain_ms", "layouts", "configs",
                       "bailout", "k2_same_layout_ms", "ms_by_carveout",
                       "groups_ms", "groups_device_ms", "groups_bound_ms",
-                      "ms_by_cap", "kernels_per_call", "device_ms"):
+                      "ms_by_cap", "kernels_per_call", "device_ms",
+                      "unfused_ms", "unfused_device_ms",
+                      "unfused_kernels_per_call", "walk_ms",
+                      "walk_device_ms", "ms_by_pieces",
+                      "device_ms_by_pieces", "pieces", "piece_chain_ms",
+                      "window_chain_ms"):
             if extra in k:
                 rows[-1][extra] = k[extra]
         if key == "fire":

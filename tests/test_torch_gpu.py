@@ -26,6 +26,7 @@ from ahocorasick_rs_tpu_torch.models.prefilter import (
     build_prefilter_config,
 )
 from ahocorasick_rs_tpu_torch.ops import scan_cuda, scan_teddy
+from ahocorasick_rs_tpu_torch.parallel import sharded
 
 pytestmark = pytest.mark.gpu
 
@@ -214,6 +215,226 @@ def test_verify_kernel_equals_plain(cuda, engine: str) -> None:
         sc.vtable, sc.classes, flat, fire_pos, n, W, sc.use_classes
     )
     assert torch.equal(got, want)
+
+
+def _verify_setup(cuda, names, engine: str, n: int, seed: int,
+                  windows: int = 1000, plant: int | None = None):
+    """K4's inputs on the card: the automaton's flagged table, an ``n``-byte
+    corpus with ``plant`` names (``n // 150`` by default), and ``windows``
+    fired groups (ascending, the last group among them) in a -1 padded
+    ``fire_pos``."""
+    am = build_automaton(names)
+    tabs = scan_cuda.DeviceTables(am, engine, cuda)
+    plant = n // 150 + 2 if plant is None else plant
+    buf = np.frombuffer(_corpus(seed, n, names, plant), np.uint8).copy()
+    G = -(-n // scan_teddy.COARSE)
+    rng = np.random.default_rng(seed)
+    groups = np.sort(rng.choice(G - 1, min(windows, G - 1), replace=False))
+    fp = np.full(scan_teddy._bucket(len(groups) + 1), -1, np.int32)
+    fp[: len(groups)] = groups * scan_teddy.COARSE
+    fp[len(groups)] = (G - 1) * scan_teddy.COARSE  # holds byte n - 1
+    W = am.max_len + scan_teddy.COARSE - 1
+    hay = torch.from_numpy(buf).to(cuda)
+    return am, tabs, hay, torch.from_numpy(fp).to(cuda), W
+
+
+def _assert_body_equals_plain(tabs, hay, fire_pos, n, W, cap2, got=None):
+    """The card's ``_verify_body`` (K4, one launch) equals the plain one on
+    CPU copies of the same inputs, in all four outputs (padding too)."""
+    if got is None:
+        got = scan_teddy._verify_body(
+            tabs.lane_table(), tabs.classes, hay, fire_pos, n, W, cap2,
+            tabs.use_classes,
+        )
+    want = scan_teddy._verify_body(
+        tabs.lane_table().cpu(), tabs.classes.cpu(), hay.cpu(),
+        fire_pos.cpu(), n, W, cap2, tabs.use_classes,
+    )
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    return int(want[3])
+
+
+@pytest.mark.parametrize("engine", ["dfa", "classed"])
+def test_verify_body_kernel_equals_plain(cuda, engine: str) -> None:
+    """One ``verify`` launch and no ``compact`` a call; bit-equal at cap2
+    above and below the total, at the planned pieces and at every count
+    the wrapper takes up to 8."""
+    names = _names(7, 40)
+    n = 50_001
+    am, tabs, hay, fire_pos, W = _verify_setup(cuda, names, engine, n, 8)
+    before = dict(_kernels.LAUNCHES)
+    total = _assert_body_equals_plain(tabs, hay, fire_pos, n, W, 4096)
+    assert _kernels.LAUNCHES["verify"] == before["verify"] + 1
+    assert _kernels.LAUNCHES["compact"] == before["compact"]
+    assert 8 < total < 4096
+    _assert_body_equals_plain(tabs, hay, fire_pos, n, W, total // 3)
+    for k in range(1, 9):
+        got = _kernels.verify_body(
+            tabs.lane_table(), tabs.classes, hay, fire_pos, n, W, 4096,
+            tabs.use_classes, halo=am.max_len - 1, pieces=k,
+        )
+        _assert_body_equals_plain(tabs, hay, fire_pos, n, W, 4096, got)
+
+
+@pytest.mark.parametrize("engine", ["dfa", "classed"])
+def test_verify_walk_kernel_every_piece_count(cuda, engine: str) -> None:
+    """The walk-only instantiation of the fused kernel equals the plain
+    walk at every piece count, fire_pos < 0 windows included."""
+    names = _names(17, 40)
+    n = 30_000
+    am, tabs, hay, fire_pos, W = _verify_setup(cuda, names, engine, n, 9)
+    args = (tabs.lane_table(), tabs.classes, hay, fire_pos, n, W,
+            tabs.use_classes)
+    want = scan_teddy._verify_walk_plain(*args)
+    for k in range(1, 9):
+        got = _kernels.verify(*args, halo=am.max_len - 1, pieces=k)
+        assert torch.equal(got, want), k
+    assert torch.equal(_kernels.verify(*args), want)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_verify_body_kernel_unaligned_view(cuda, offset: int) -> None:
+    """A haystack view off the 16-byte alignment takes byte loads."""
+    names = _names(27, 40)
+    n = 40_000
+    _, tabs, base, fire_pos, W = _verify_setup(
+        cuda, names, "dfa", n + offset, 10)
+    hay = base[offset:]
+    _assert_body_equals_plain(tabs, hay, fire_pos, n, W, 4096)
+
+
+@pytest.mark.parametrize("engine", ["dfa", "classed"])
+def test_verify_body_kernel_window_ends_at_buffer_end(cuda, engine) -> None:
+    """The last window ends at the buffer's last byte (n equal to the
+    buffer, not a multiple of 16), so its last 16-byte piece would run
+    past it; and a sharded rank's ``hay_pad``, which ends ``VCHUNK`` bytes
+    after the right neighbour's head."""
+    names = _names(37, 40)
+    am = build_automaton(names)
+    W = am.max_len + scan_teddy.COARSE - 1
+    n = 32 * 700 + W
+    _, tabs, hay, fire_pos, _ = _verify_setup(cuda, names, engine, n, 11)
+    fp = fire_pos.clone()
+    fp[-1] = 32 * 700  # its window ends at byte n - 1
+    assert n % 16 and int(fp[-1]) + W == hay.numel()
+    _assert_body_equals_plain(tabs, hay, fp, n, W, 4096)
+    LT = 32 * 512
+    _, Hr = sharded.teddy_layout(2 * LT, 2, W)
+    shard, right = hay[:LT], hay[LT : LT + Hr]
+    hay_pad = torch.cat([shard, right, shard.new_zeros(scan_teddy.VCHUNK)])
+    nv = hay_pad.numel()
+    fp2 = torch.full((1024,), -1, dtype=torch.int32, device=cuda)
+    fp2[:512] = torch.arange(512, device=cuda, dtype=torch.int32) * 32
+    fp2[512] = nv - W  # ends at hay_pad's last byte
+    _assert_body_equals_plain(tabs, hay_pad, fp2, nv, W, 8192)
+
+
+def test_verify_body_kernel_overflow_and_retry(cuda) -> None:
+    """cap2 below the total: the total stays exact and the first cap2
+    matched steps are written; ``TeddyScanner.occurrences`` grows cap2
+    from 4,096 and ends equal to the CPU scanner."""
+    names = _names(47, 60)
+    n = 300_000
+    _, tabs, hay, fire_pos, W = _verify_setup(
+        cuda, names, "dfa", n, 12, windows=9000, plant=n // 40)
+    total = _assert_body_equals_plain(tabs, hay, fire_pos, n, W, 1 << 15)
+    assert total > 4096
+    for cap2 in (1, 4096, total - 1):
+        _assert_body_equals_plain(tabs, hay, fire_pos, n, W, cap2)
+    am = build_automaton(names)
+    pf = build_prefilter(names)
+    # 20,000 names in 2 MB: about 25,000 matched steps, fired groups well
+    # under the dense tier's threshold
+    dense = np.frombuffer(_corpus(13, 2_000_000, names, 20_000), np.uint8)
+    scanners = [scan_teddy.TeddyScanner(am, pf, scan_cuda.DeviceTables(
+        am, "dfa", d)) for d in ("cpu", cuda)]
+    want, got = (sc.occurrences(dense) for sc in scanners)
+    assert scanners[1].match_cap > 4096
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("streams", [1, 2])
+def test_verify_body_kernel_interleaved_with_compact(cuda, streams) -> None:
+    """Twenty calls interleaved with K3 on one stream, then alternating
+    between two: K3's and K4's launches share each stream's look-back
+    scratch, and their epochs must follow the launches' order."""
+    names = _names(57, 40)
+    n = 60_000
+    _, tabs, hay, fire_pos, W = _verify_setup(cuda, names, "classed", n, 14)
+    args = (tabs.lane_table(), tabs.classes, hay, fire_pos, n, W)
+    want = [scan_teddy._verify_body(
+        *(a.cpu() if torch.is_tensor(a) else a for a in args), cap2,
+        tabs.use_classes) for cap2 in (64, 4096)]
+    rng = np.random.default_rng(15)
+    mask = torch.from_numpy(rng.random(200_000) < 0.01).to(cuda)
+    want_c = [x.cpu() for x in scan_cuda._compact_plain(mask, 4096)]
+    side = [torch.cuda.current_stream(cuda)] + [
+        torch.cuda.Stream(cuda) for _ in range(streams - 1)]
+    outs = []
+    for i in range(20):
+        s = side[i % streams]
+        s.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(s):
+            body = scan_teddy._verify_body(
+                *args, (64, 4096)[i % 2], tabs.use_classes)
+            comp = _kernels.compact(mask.view(torch.uint8), 4096)
+        outs.append((i, body, comp))
+    torch.cuda.synchronize()
+    for i, body, comp in outs:
+        for a, b in zip(body, want[i % 2]):
+            assert torch.equal(a.cpu(), b), i
+        assert torch.equal(comp[0].cpu(), want_c[0]), i
+        assert int(comp[1]) == int(want_c[1]), i
+
+
+@pytest.mark.parametrize("case", ["long", "halo0"])
+@pytest.mark.parametrize("engine", ["dfa", "classed"])
+def test_verify_body_kernel_long_and_one_byte(cuda, case, engine) -> None:
+    """max_len above COARSE (W = 71 > 63, the halo 39) and one-byte
+    patterns (halo 0, match-dense: pieces walk again past their slots)."""
+    names = (_names(67, 30) + [b"abcdefgh" * 5] if case == "long"
+             else [b"a", b"c", b"h"])
+    n = 20_000
+    am, tabs, hay, fire_pos, W = _verify_setup(
+        cuda, names, engine, n, 16, windows=400)
+    assert (W > 63) if case == "long" else am.max_len == 1
+    total = _assert_body_equals_plain(tabs, hay, fire_pos, n, W, 1 << 15)
+    _assert_body_equals_plain(tabs, hay, fire_pos, n, W, max(1, total // 2))
+    for k in (1, 2, 5, 8):
+        got = _kernels.verify_body(
+            tabs.lane_table(), tabs.classes, hay, fire_pos, n, W, 1 << 15,
+            tabs.use_classes, halo=am.max_len - 1, pieces=k,
+        )
+        _assert_body_equals_plain(tabs, hay, fire_pos, n, W, 1 << 15, got)
+
+
+def test_verify_body_kernel_is_one_launch(cuda) -> None:
+    """Ten ``_verify_body`` calls on the card are ten ``verify`` launches
+    and no ``compact``, and the profiler sees K4's kernel alone, at most
+    once a call (it can lose the record of a kernel this short)."""
+    names = _names(77, 40)
+    n = 50_000
+    _, tabs, hay, fire_pos, W = _verify_setup(cuda, names, "dfa", n, 17)
+    args = (tabs.lane_table(), tabs.classes, hay, fire_pos, n, W, 4096,
+            tabs.use_classes)
+    scan_teddy._verify_body(*args)
+    torch.cuda.synchronize()
+    before = dict(_kernels.LAUNCHES)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(10):
+            scan_teddy._verify_body(*args)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert 1 <= len(kernels) <= 10, kernels
+    assert all("verify_kernel" in k for k in kernels), kernels
+    assert _kernels.LAUNCHES["verify"] == before["verify"] + 10
+    assert _kernels.LAUNCHES["compact"] == before["compact"]
 
 
 @pytest.mark.parametrize("engine", ["dfa", "classed"])
