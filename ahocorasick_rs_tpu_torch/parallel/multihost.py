@@ -28,8 +28,10 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
+import subprocess
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -225,6 +227,87 @@ def run_worker(
         with open(out_path, "w") as f:
             json.dump(record, f)
     return record
+
+
+class RankProcesses:
+    """``world`` ranks, each a child process, started at once.
+
+    Rank ``r`` runs ``argv(r, init, out)``: ``init`` is a ``file://``
+    rendezvous and ``out`` the path of the JSON record the rank writes,
+    both in ``work_dir``, where each rank's output is logged too
+    (``<tag>_rank<r>.log``).  :meth:`records` waits for the ranks and
+    returns their records; :meth:`stop` (also on leaving a ``with``
+    block) kills any rank still running."""
+
+    def __init__(
+        self,
+        argv: Callable[[int, str, str], list[str]],
+        world: int,
+        work_dir: str,
+        *,
+        tag: str = "ranks",
+        cwd: Optional[str] = None,
+        env: Optional[dict] = None,
+    ) -> None:
+        os.makedirs(work_dir, exist_ok=True)
+        rdv = os.path.join(work_dir, f"{tag}_rendezvous")
+        if os.path.exists(rdv):
+            os.remove(rdv)
+        self.tag = tag
+        #: (process, record path, log path) of each rank
+        self.procs: list[tuple[subprocess.Popen, str, str]] = []
+        try:
+            for r in range(world):
+                out = os.path.join(work_dir, f"{tag}_rank{r}.json")
+                log = os.path.join(work_dir, f"{tag}_rank{r}.log")
+                with open(log, "w") as log_f:
+                    self.procs.append((subprocess.Popen(
+                        argv(r, f"file://{rdv}", out), cwd=cwd, env=env,
+                        stdout=log_f, stderr=subprocess.STDOUT,
+                    ), out, log))
+        except BaseException:
+            self.stop()
+            raise
+
+    def records(self, timeout: float) -> list[dict]:
+        """Every rank's record, in rank order.  Raises ``RuntimeError``,
+        with the first failed rank's log tail, when a rank exits non-zero
+        (its peers would wait in a collective, so this stops waiting at
+        once) or ``timeout`` seconds pass first."""
+        deadline = time.monotonic() + timeout
+        while True:
+            codes = [p.poll() for p, _, _ in self.procs]  # poll every rank
+            if None not in codes or any(c not in (None, 0) for c in codes):
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"{self.tag}: ranks still running after {timeout} s")
+            time.sleep(0.2)
+        bad = [(r, p.returncode, log) for r, (p, _, log)
+               in enumerate(self.procs) if p.returncode not in (None, 0)]
+        if bad:
+            with open(bad[0][2]) as f:
+                tail = f.read()[-3000:]
+            raise RuntimeError(
+                f"{self.tag}: ranks {[(r, rc) for r, rc, _ in bad]} "
+                f"failed; rank {bad[0][0]}:\n{tail}")
+        records = []
+        for _, out, _ in self.procs:
+            with open(out) as f:
+                records.append(json.load(f))
+        return records
+
+    def stop(self) -> None:
+        for p, _, _ in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def __enter__(self) -> "RankProcesses":
+        return self
+
+    def __exit__(self, *exc: object) -> None:
+        self.stop()
 
 
 def main(argv: Optional[list[str]] = None) -> None:

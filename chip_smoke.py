@@ -37,6 +37,11 @@ bodies are held against the same bodies on the CPU, then two gloo ranks
 sharing the card and one NCCL rank (child processes of this script) make
 the sharded Teddy, dense and batch calls through the public API with
 ``mesh=``, and every rank's tuples must equal the single-device port's.
+Last, the conformance phase runs the conformance tool
+(``ahocorasick_rs_tpu_torch.tools.gpu_conformance``): its parts A and B
+and the first :data:`CONFORMANCE_CASES` cases of its seeded sweep (seed
+0), a fixed list, every device answer held to the host tier; a mismatch,
+or a kernel the run never launched, fails it.
 
 Output: progress lines, the card's name and power limit as ``nvidia-smi``
 reports them, one ``{"kernels": [...]}`` JSON line, and as the last line
@@ -89,6 +94,10 @@ K1_CONFIGS = ((8, 8, 2), (3, 1, 1))
 #: tables outgrow the L1 (the engine exists for sets larger still)
 K7_BIG_PATTERNS = 100_000
 K7_BIG_MIB = 16
+#: part C cases of the conformance phase: the first of seed 0, a fixed
+#: list (parts A and B, whose nested-pattern corpus resolves millions of
+#: occurrences on the host, take most of the phase)
+CONFORMANCE_CASES = 25
 
 
 def long_docs(names: list[bytes]) -> list[str]:
@@ -1526,54 +1535,20 @@ def spawn_ranks(world: int, backend: str) -> list[dict]:
     """Run ``world`` ranks of :func:`shard_child` on ``cuda:0`` over
     ``backend`` and return their records; any failure fails the phase,
     and every child is stopped before this returns."""
-    out_dir = os.path.join(HERE, "chiprun_out", "shard")
-    os.makedirs(out_dir, exist_ok=True)
-    tag = f"{backend}{world}"
-    rdv = os.path.join(out_dir, f"rendezvous_{tag}")
-    if os.path.exists(rdv):
-        os.remove(rdv)
-    procs = []
-    try:
-        for r in range(world):
-            out = os.path.join(out_dir, f"{tag}_rank{r}.json")
-            log_path = os.path.join(out_dir, f"{tag}_rank{r}.log")
-            with open(log_path, "w") as log_f:
-                procs.append((subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__),
-                     "--shard-child", "--rank", str(r), "--world",
-                     str(world), "--backend", backend, "--init",
-                     f"file://{rdv}", "--out", out],
-                    cwd=HERE, stdout=log_f, stderr=subprocess.STDOUT,
-                ), out, log_path))
-        deadline = time.monotonic() + SHARD_TIMEOUT_S
-        # a rank that fails leaves its peers waiting in a collective: stop
-        # waiting at the first failure
-        while any(p.poll() is None for p, _, _ in procs):
-            if any(p.returncode not in (None, 0) for p, _, _ in procs):
-                break
-            if time.monotonic() > deadline:
-                raise SmokeFailure(f"{tag} ranks still running at the "
-                                   "deadline")
-            time.sleep(0.2)
-        bad = [(r, p.returncode, lp) for r, (p, _, lp) in enumerate(procs)
-               if p.returncode not in (None, 0)]
-        if bad:
-            with open(bad[0][2]) as f:
-                tail = f.read()[-3000:]
-            raise SmokeFailure(
-                f"{tag} ranks {[(r, rc) for r, rc, _ in bad]} failed; "
-                f"rank {bad[0][0]}:\n{tail}"
-            )
-        records = []
-        for _, out, _ in procs:
-            with open(out) as f:
-                records.append(json.load(f))
-        return records
-    finally:
-        for p, _, _ in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    from ahocorasick_rs_tpu_torch.parallel.multihost import RankProcesses
+
+    def argv(r: int, init: str, out: str) -> list[str]:
+        return [sys.executable, os.path.abspath(__file__), "--shard-child",
+                "--rank", str(r), "--world", str(world), "--backend",
+                backend, "--init", init, "--out", out]
+
+    with RankProcesses(argv, world, os.path.join(HERE, "chiprun_out",
+                                                 "shard"),
+                       tag=f"{backend}{world}", cwd=HERE) as ranks:
+        try:
+            return ranks.records(SHARD_TIMEOUT_S)
+        except RuntimeError as e:
+            raise SmokeFailure(str(e)) from None
 
 
 def phase_sharded(want: dict[str, str]) -> dict:
@@ -1606,6 +1581,40 @@ def phase_sharded(want: dict[str, str]) -> dict:
                 "mesh": records[0]["mesh"],
             }
     return paths
+
+
+def phase_conformance(dev) -> dict:
+    """The conformance tool on the card: parts A and B and the first
+    :data:`CONFORMANCE_CASES` cases of part C from seed 0.  Any mismatch
+    or uncovered kernel fails the phase; the tool's record goes to
+    ``chiprun_out/conformance.json``.  Notes whether the committed record
+    ``H100_CONFORMANCE.json`` was made with the package's present sources
+    (its ``source_hash``)."""
+    from ahocorasick_rs_tpu_torch.tools import gpu_conformance
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    rec = gpu_conformance.run(
+        dev, cases=CONFORMANCE_CASES, seed=0, verbose=False,
+        out=os.path.join(out_dir, "conformance.json"),
+    )
+    if rec["mismatches"]:
+        raise SmokeFailure(
+            f"conformance: {len(rec['mismatches'])} mismatches, the first "
+            f"{json.dumps(rec['mismatches'][0], default=str)[:3000]}")
+    require(not rec["uncovered"],
+            f"conformance: no launch of {rec['uncovered']}")
+    try:
+        with open(os.path.join(HERE, "H100_CONFORMANCE.json")) as f:
+            record_hash = json.load(f).get("source_hash")
+    except FileNotFoundError:
+        record_hash = None
+    return {k: rec[k] for k in (
+        "cases", "checks", "seconds", "seconds_by_part", "launches",
+        "cases_by_kernel", "tiers", "part_c", "source_hash")} | {
+        "part_a_rows": len(rec["part_a"]),
+        "part_b_rows": len(rec["part_b"]), "mismatches": 0,
+        "record_source_hash": record_hash}
 
 
 KERNELS = {
@@ -1762,6 +1771,16 @@ def main() -> int:
         f"({time.perf_counter() - t:.1f} s)")
     paths.update(sharded)
     report["paths"] = paths
+    conf = report["conformance"] = phase_conformance(dev)
+    log(f"conformance: {conf['part_a_rows']} part A and "
+        f"{conf['part_b_rows']} part B rows, {conf['cases']} sweep cases, "
+        f"{conf['checks']} checks, no mismatch, every kernel launched "
+        f"({conf['seconds']:.1f} s)")
+    log("  H100_CONFORMANCE.json " + (
+        "was made with these sources"
+        if conf["record_source_hash"] == conf["source_hash"] else
+        f"is stale: made with sources {conf['record_source_hash']}, these "
+        f"are {conf['source_hash']}"))
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():

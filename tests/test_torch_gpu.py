@@ -1242,3 +1242,16 @@ def test_tune_and_load_on_card(cuda, tmp_path) -> None:
         hay
     )
     assert loaded.stats()["last_backend"] == "teddy"
+
+
+def test_conformance_sweep_first_cases(cuda, tmp_path) -> None:
+    """The conformance tool on the card: parts A and B and the first 50
+    cases of part C (seed 0), with its coverage check: no mismatch, and
+    every kernel of the matcher's paths launched."""
+    from ahocorasick_rs_tpu_torch.tools import gpu_conformance
+
+    rec = gpu_conformance.run(cuda, cases=50, out=str(tmp_path / "c.json"),
+                              verbose=False)
+    assert rec["mismatches"] == []
+    assert rec["uncovered"] == []
+    assert rec["cases"] == 50

@@ -7,18 +7,16 @@ of the port (the device tier on the CPU), and the result tier must be the
 sharded one.
 
 Each child gets its own ``file://`` rendezvous under ``tmp_path`` (no
-fixed port), one torch thread and ``device="cpu"``; ``communicate`` has a
-deadline and the children are killed when it passes.  The JAX package's
+fixed port), one torch thread and ``device="cpu"``; the ranks are started
+and awaited by ``multihost.RankProcesses``, with a deadline, and killed
+when it passes or a rank fails.  The JAX package's
 own multi-process test is ``tests/test_multihost.py``.
 """
 
 from __future__ import annotations
 
-import json
 import os
-import subprocess
 import sys
-import time
 
 import pytest
 import torch
@@ -50,44 +48,23 @@ def _spawn(tmp_path, world: int, *extra: str) -> list[dict]:
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (REPO, env.get("PYTHONPATH", "")) if p
     )
-    init = f"file://{tmp_path}/rendezvous"
-    procs, logs, outs = [], [], []
-    for rank in range(world):
-        outs.append(tmp_path / f"rank{rank}.json")
-        logs.append(tmp_path / f"rank{rank}.log")
-        procs.append(subprocess.Popen(
-            [
-                sys.executable, "-m",
-                "ahocorasick_rs_tpu_torch.parallel.multihost",
-                "--init-method", init, "--world-size", str(world),
-                "--rank", str(rank), "--device", "cpu", "--backend", "gloo",
-                "--nbytes", str(NBYTES), "--repeats", "1", "--threads", "1",
-                "--out", str(outs[-1]), *extra,
-            ],
-            cwd=REPO, env=env, stdout=open(logs[-1], "w"),
-            stderr=subprocess.STDOUT,
-        ))
-    deadline = time.monotonic() + DEADLINE
-    failed = []
-    for rank, p in enumerate(procs):
+
+    def argv(rank: int, init: str, out: str) -> list[str]:
+        return [
+            sys.executable, "-m",
+            "ahocorasick_rs_tpu_torch.parallel.multihost",
+            "--init-method", init, "--world-size", str(world),
+            "--rank", str(rank), "--device", "cpu", "--backend", "gloo",
+            "--nbytes", str(NBYTES), "--repeats", "1", "--threads", "1",
+            "--out", out, *extra,
+        ]
+
+    with multihost.RankProcesses(argv, world, str(tmp_path), cwd=REPO,
+                                 env=env) as ranks:
         try:
-            p.communicate(timeout=max(1.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            for q in procs:
-                q.communicate()
-            failed.append((rank, "killed at the deadline"))
-            break
-        if p.returncode != 0:
-            failed.append((rank, f"exit {p.returncode}"))
-    if failed:
-        tails = "\n".join(
-            f"--- rank {r} ({why}) ---\n{logs[r].read_text()[-3000:]}"
-            for r, why in failed
-        )
-        pytest.fail(f"spawned ranks failed:\n{tails}")
-    return [json.loads(o.read_text()) for o in outs]
+            return ranks.records(DEADLINE)
+        except RuntimeError as e:
+            pytest.fail(f"spawned ranks failed: {e}")
 
 
 def _check(records: list[dict], truth: dict, world: int) -> None:
@@ -132,3 +109,18 @@ def test_runner_needs_a_card_unless_cpu_is_asked(tmp_path, monkeypatch) -> None:
     with pytest.raises(RuntimeError, match="no CUDA device"):
         multihost.run_worker(f"file://{tmp_path}/rendezvous", 1, 0)
     assert not torch.distributed.is_initialized()
+
+
+def test_rank_processes_stop_at_a_failed_rank(tmp_path) -> None:
+    """A rank that exits non-zero ends the wait at once, with its log's
+    tail, while its peer still runs; leaving the block kills the peer."""
+    def argv(rank: int, init: str, out: str) -> list[str]:
+        body = ("import sys; print('rank one fails'); sys.exit(3)"
+                if rank == 1 else "import time; time.sleep(60)")
+        return [sys.executable, "-c", body]
+
+    with multihost.RankProcesses(argv, 2, str(tmp_path)) as ranks:
+        with pytest.raises(RuntimeError, match="rank one fails"):
+            ranks.records(30.0)
+        peer = ranks.procs[0][0]
+    assert peer.poll() is not None
