@@ -143,10 +143,12 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import ahocorasick_rs_tpu_torch as port
     from ahocorasick_rs_tpu_torch.tools._synth import (
+        long_docs,
+        short_case,
         synth_corpus,
         synth_names,
     )
-    from chip_smoke import CORPUS_MIB, PATTERNS, SEED, long_docs, short_case
+    from chip_smoke import CORPUS_MIB, PATTERNS, SEED
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -60,6 +60,30 @@ def _corpus(seed: int, n: int, names: list[bytes], plant: int) -> bytes:
 
 #: K3's chunk: the mask bytes of one block
 K3_CHUNK = 16384
+#: traces :func:`_traced_kernels` takes again after one with no kernel
+#: event at all (``torch.profiler`` returned such a trace once in two full
+#: runs of this file)
+TRACE_RETRIES = 3
+
+
+def _traced_kernels(fn) -> tuple[list[str], dict[str, int]]:
+    """The CUDA kernels (copies and fills left out) that ``torch.profiler``
+    saw one call of ``fn`` run, and the launch counters' change over that
+    call.  A trace with no kernel event at all is taken again, with a new
+    call, at most :data:`TRACE_RETRIES` times."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(1 + TRACE_RETRIES):
+        before = dict(_kernels.LAUNCHES)
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+        if kernels:
+            break
+    return kernels, {k: v - before[k] for k, v in _kernels.LAUNCHES.items()}
 
 
 @pytest.mark.parametrize(
@@ -87,19 +111,11 @@ def test_compact_kernel_chunk_and_one_launch(cuda) -> None:
     ).to(cuda).view(torch.uint8)
     _kernels.compact(mask, 4096)
     torch.cuda.synchronize()
-    before = _kernels.LAUNCHES["compact"]
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        _kernels.compact(mask, 4096)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset"))]
+    kernels, launched = _traced_kernels(lambda: _kernels.compact(mask, 4096))
     assert kernels == ["compact_kernel"] or (
         len(kernels) == 1 and "compact_kernel" in kernels[0]
     ), kernels
-    assert _kernels.LAUNCHES["compact"] == before + 1
+    assert launched["compact"] == 1
 
 
 def test_compact_kernel_repeated_calls(cuda) -> None:
@@ -421,20 +437,16 @@ def test_verify_body_kernel_is_one_launch(cuda) -> None:
             tabs.use_classes)
     scan_teddy._verify_body(*args)
     torch.cuda.synchronize()
-    before = dict(_kernels.LAUNCHES)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def ten_calls() -> None:
         for _ in range(10):
             scan_teddy._verify_body(*args)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset"))]
+
+    kernels, launched = _traced_kernels(ten_calls)
     assert 1 <= len(kernels) <= 10, kernels
     assert all("verify_kernel" in k for k in kernels), kernels
-    assert _kernels.LAUNCHES["verify"] == before["verify"] + 10
-    assert _kernels.LAUNCHES["compact"] == before["compact"]
+    assert launched["verify"] == 10
+    assert launched["compact"] == 0
 
 
 @pytest.mark.parametrize("engine", ["dfa", "classed"])
