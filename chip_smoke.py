@@ -43,11 +43,21 @@ Then the bench phase runs the benchmark tool
 line must parse, name the five north-star paths, show each GPU
 measurement's kernels launched, and count what the host tier counts on
 the same inputs.
-Last, the conformance phase runs the conformance tool
+Then the conformance phase runs the conformance tool
 (``ahocorasick_rs_tpu_torch.tools.gpu_conformance``): its parts A and B
 and the first :data:`CONFORMANCE_CASES` cases of its seeded sweep (seed
 0), a fixed list, every device answer held to the host tier; a mismatch,
 or a kernel the run never launched, fails it.
+Last, the tools phase runs the JAX package's other tools as the port has
+them, each through its entry function: ``multihost_run`` with two gloo
+ranks sharing the card, then one NCCL rank, at :data:`TOOLS_MIB` MiB (every
+rank's digests equal to the host tier's, and every rank launched the
+kernels of the sharded tiers it ran); ``scaling_bench`` at one and
+two ranks (pairs equal to the host tier's, the sharded kernels launched
+in every rank); both harnesses against the upstream binaries in
+``--self-test`` (the conformance harness with ours on the device tier);
+and ``fuzz_differential`` for :data:`FUZZ_SECONDS` s from a fixed seed.
+The three runs that start ranks overlap the other three tools.
 
 Output: progress lines, the card's name and power limit as ``nvidia-smi``
 reports them, one ``{"kernels": [...]}`` JSON line, and as the last line
@@ -114,6 +124,17 @@ TRACE_RETRIES = 3
 BENCH_SCALE = 16
 BENCH_SECTIONS = ("north_star", "scenarios", "match_dense",
                   "sparse_device_forced")
+#: the tools phase: multihost_run's haystack MiB, the fuzzer's seconds
+#: and seed, the competitor bench's LONG haystacks, and the conformance
+#: harness's minimums
+TOOLS_MIB = 16
+FUZZ_SECONDS = 10
+FUZZ_SEED = 0
+TOOLS_LONG_HAYSTACKS = 2000
+TOOLS_MIN_CHECKS = ("--min-tuple-checks", "2000", "--min-list-checks",
+                    "1000", "--dense-cases", "2")
+#: the kernels every scaling_bench rank must launch on the card
+SCALING_KERNELS = ("lane_scan", "lane_scan_head", "compact", "shard_body")
 #: the kernels each GPU measurement of the bench's north star must launch
 BENCH_KERNELS = {
     "gpu_plain": ("lane_scan", "compact"),
@@ -1681,6 +1702,114 @@ def phase_conformance(dev) -> dict:
         "record_source_hash": record_hash}
 
 
+def quiet(fn, *args) -> tuple[int, str]:
+    """``fn(args)``'s return code and standard output (a tool's CLI);
+    ``SystemExit`` counts as its code."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            rc = fn(*args)
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue()
+
+
+def timed(fn, *args, **kwargs) -> tuple[object, float]:
+    """``fn``'s result and its seconds."""
+    t = time.perf_counter()
+    return fn(*args, **kwargs), time.perf_counter() - t
+
+
+def phase_tools() -> dict:
+    """The port's counterparts of the JAX package's last tools, on the
+    card: ``multihost_run`` (two gloo ranks sharing the card, and one NCCL
+    rank), ``scaling_bench`` (one and two ranks), both harnesses against
+    the upstream binaries in ``--self-test``, and the fuzzer.  The three
+    runs that start ranks wait on them in threads while the other tools
+    run in this process, so the seconds of each overlap.  Any failure
+    fails the phase.  ``launches`` adds this process's launches and those
+    of every rank the tools started."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ahocorasick_rs_tpu_torch import _kernels
+    from ahocorasick_rs_tpu_torch.tools import (
+        bench_vs_reference,
+        conformance_vs_reference,
+        fuzz_differential,
+        multihost_run,
+        scaling_bench,
+    )
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    res: dict = {"seconds": {}}
+    _kernels.reset_launches()
+    with ThreadPoolExecutor(3) as pool:
+        ranked = {
+            f"multihost_{backend}{world}": pool.submit(
+                timed, multihost_run.run, world, TOOLS_MIB << 20,
+                backend=backend, weak=False, timeout=SHARD_TIMEOUT_S)
+            for world, backend in ((SHARD_RANKS, "gloo"), (1, "nccl"))
+        }
+        ranked["scaling_bench"] = pool.submit(
+            timed, scaling_bench.run, ranks=SHARD_RANKS,
+            timeout=SHARD_TIMEOUT_S)
+        for name, fn, argv, word in (
+            ("conformance_vs_reference", conformance_vs_reference.main,
+             ["--self-test", "--backend", "device", "--seed", "0",
+              "--max-seconds", "120", *TOOLS_MIN_CHECKS], "PASS: zero"),
+            ("bench_vs_reference", bench_vs_reference.main,
+             ["--self-test", "--long-haystacks", str(TOOLS_LONG_HAYSTACKS),
+              "--out", os.path.join(out_dir, "vs_reference.md"),
+              "--json-out", os.path.join(out_dir, "vs_reference.json")],
+             "# Competitor benchmark"),
+            ("fuzz_differential", fuzz_differential.main,
+             [str(FUZZ_SECONDS), "--seed", str(FUZZ_SEED)], "PASS:"),
+        ):
+            (rc, text), res["seconds"][name] = timed(quiet, fn, argv)
+            with open(os.path.join(out_dir, f"{name}.log"), "w") as f:
+                f.write(text)
+            require(rc == 0 and word in text,
+                    f"{name} exited {rc}: {text[-2000:]}")
+            res[name] = text.strip().splitlines()[-1][:300]
+        for key, future in ranked.items():
+            rec, res["seconds"][key] = future.result()
+            res[key] = rec
+    for world, backend in ((SHARD_RANKS, "gloo"), (1, "nccl")):
+        rec = res[f"multihost_{backend}{world}"]
+        require(rec["bit_exact_vs_single_process"],
+                f"multihost_run {backend}{world}: {rec['mismatches'][:3]}")
+        require(rec["backend"] == backend
+                and rec["devices_by_rank"] == ["cuda:0"] * world,
+                f"multihost_run {backend}{world} ran {rec['backend']} on "
+                f"{rec['devices_by_rank']}")
+        tiers = set(rec["tier_by_semantics"].values())
+        require(tiers <= set(SHARD_KERNELS),
+                f"multihost_run ran the tiers {rec['tier_by_semantics']}")
+        for r, counts in enumerate(rec["launches_by_rank"]):
+            for k in {"shard_body"}.union(*(SHARD_KERNELS[t] for t in tiers)):
+                require(counts.get(k, 0) > 0, f"multihost_run {backend}"
+                        f"{world} rank {r} launched no {k}")
+    sc = res["scaling_bench"]
+    require(sc["exact_vs_host_tier"], f"scaling_bench: {sc['mismatches']}")
+    launches = dict(_kernels.LAUNCHES)
+    require(launches["compact"] > 0, "the conformance harness's device tier "
+            "launched no compact")
+    for world, backend in ((SHARD_RANKS, "gloo"), (1, "nccl")):
+        for counts in res[f"multihost_{backend}{world}"]["launches_by_rank"]:
+            for k, v in counts.items():
+                launches[k] += v
+    for world, run in sc["by_world"].items():
+        for r, counts in enumerate(run["launches_by_rank"]):
+            for k in SCALING_KERNELS:
+                require(counts.get(k, 0) > 0,
+                        f"scaling_bench rank {r} of {world} launched no {k}")
+            for k, v in counts.items():
+                launches[k] += v
+    res["launches"] = launches
+    return res
+
+
 KERNELS = {
     "fire": ("K1 fire", "ahocorasick_rs_tpu_torch/csrc/teddy.cu",
              "ahocorasick_rs_tpu/ops/scan_teddy.py:187"),
@@ -1853,6 +1982,11 @@ def main() -> int:
         if conf["record_source_hash"] == conf["source_hash"] else
         f"is stale: made with sources {conf['record_source_hash']}, these "
         f"are {conf['source_hash']}"))
+    t = time.perf_counter()
+    tools = paths["tools"] = phase_tools()
+    for key, secs in tools["seconds"].items():
+        log(f"  {key}: {secs:.1f} s")
+    log(f"tools phase: {time.perf_counter() - t:.1f} s")
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():
