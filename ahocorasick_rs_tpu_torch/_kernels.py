@@ -34,7 +34,7 @@ _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 SOURCES = (
     "scan.cu", "teddy.cu", "verify.cu", "stride2.cu", "sparse.cu", "batch.cu",
-    "probe.cu",
+    "probe.cu", "groups.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,9 +46,10 @@ NVCC_FLAGS = (
 #: (also counted under ``lane_scan``), ``verify`` K4's launches (the
 #: whole verify body, or its walk alone), ``shard_body`` the per-rank bodies
 #: of the sharded scan (K8) that ran on a card, ``probe_*`` the layout
-#: probes P1 and P2
+#: probes P1 and P2, ``fire_groups`` the Teddy group stage K9
 LAUNCHES: dict[str, int] = {
-    "fire": 0, "lane_scan": 0, "lane_scan_head": 0, "compact": 0,
+    "fire": 0, "fire_groups": 0, "lane_scan": 0, "lane_scan_head": 0,
+    "compact": 0,
     "verify": 0, "batch_scan": 0, "stride2_scan": 0, "sparse_scan": 0,
     "shard_body": 0, "probe_reduce": 0, "probe_rollrows": 0,
 }
@@ -92,6 +93,7 @@ _SIGNATURES = {
                       _I32, _P, _P, _P],
     "ac_probe_reduce": [_P, _I64, _P, _P],
     "ac_probe_rollrows": [_P, _I64, _P, _P],
+    "ac_fire_groups": [_P, _I64, _I64, _P, _P],
 }
 
 
@@ -435,6 +437,38 @@ def fire(
     LAUNCHES["fire"] += 1
     key = (m, words, passes)
     FIRE_CONFIGS[key] = FIRE_CONFIGS.get(key, 0) + 1
+    return out
+
+
+#: mask bytes a Teddy group (the Teddy scan's ``COARSE``)
+FIRE_GROUP = 32
+
+
+def fire_groups(mask: torch.Tensor, n: int) -> torch.Tensor:
+    """K9: uint8 ``[N / 32]``, 1 where a 32-byte group of K1's uint8 mask
+    ``[N]`` holds a nonzero byte and starts below ``n`` (any int: a
+    sharded rank passes ``n - offset``), else 0.  A mask view that is not
+    16-byte aligned is read a byte at a time."""
+    if mask.dtype != torch.uint8 or mask.dim() != 1:
+        raise ValueError(
+            f"fire_groups: mask is {mask.dtype} with {mask.dim()} dims, not "
+            "uint8 [N]"
+        )
+    N = mask.numel()
+    if N % FIRE_GROUP or not 0 < N < 1 << 31:
+        raise ValueError(
+            f"fire_groups: N={N} is not a positive multiple of {FIRE_GROUP} "
+            "below 2**31"
+        )
+    dev = mask.device
+    if dev.type != "cuda":
+        raise ValueError("fire_groups kernel needs CUDA tensors")
+    _check("mask", mask, torch.uint8, dev, 1)
+    out = torch.empty(N // FIRE_GROUP, dtype=torch.uint8, device=dev)
+    _raise_on(build()["groups"].ac_fire_groups(
+        mask.data_ptr(), N, int(n), out.data_ptr(), _stream(dev),
+    ), "fire_groups")
+    LAUNCHES["fire_groups"] += 1
     return out
 
 

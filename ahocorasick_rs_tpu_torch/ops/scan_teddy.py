@@ -8,8 +8,9 @@ Pipeline (device):
    Only the last ``m-1`` positions of the staged buffer, whose next bytes
    do not exist, are force-fired; verification discards false fires, so
    that can only over-fire, never miss.
-2. **Compaction** (K3): the fire mask is OR-reduced over ``COARSE``-byte
-   groups and the fired groups are compacted on the device (capacity +
+2. **Groups and compaction** (K9, ``csrc/groups.cu``, then K3): the fire
+   mask is OR-reduced over ``COARSE``-byte groups, each tested against
+   ``n``, and the fired groups are compacted on the device (capacity +
    exact-count retry, as in ``scan_cuda``).
 3. **Verification** (K4, ``csrc/verify.cu``, one launch): every fired
    group start ``i`` is a candidate match start.  The window
@@ -108,6 +109,25 @@ def fire_mask(
     if packed is None:
         raise ValueError("fire_mask on a card needs the packed tables")
     return _kernels.fire(packed, hay2d, m, words, passes, tile)
+
+
+def _fire_groups_plain(mask: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch version of K9: bool [G], the groups of ``COARSE``
+    bytes of the flat fire mask that hold a nonzero byte and start below
+    ``n``."""
+    G = mask.numel() // COARSE
+    grp = mask.view(G, COARSE).amax(dim=1)
+    gidx = torch.arange(G, device=mask.device)
+    return (grp != 0) & (gidx * COARSE < n)
+
+
+def fire_groups(mask: torch.Tensor, n: int) -> torch.Tensor:
+    """K9: the fired groups of K1's flat mask (``N`` a multiple of
+    ``COARSE``), the input of K3: uint8 [N / COARSE] from the kernel,
+    bool from the plain version on the CPU."""
+    if mask.device.type == "cpu":
+        return _fire_groups_plain(mask, n)
+    return _kernels.fire_groups(mask, n)
 
 
 #: bit position where the verify table carries the "next state has matches"
@@ -227,11 +247,7 @@ def _fire_verify(
     mask = fire_mask(
         tables, hay2d, m, words, passes, packed=packed
     ).reshape(-1)
-    G = mask.numel() // COARSE
-    grp = mask.view(G, COARSE).amax(dim=1)
-    gidx = torch.arange(G, device=mask.device)
-    fired = (grp != 0) & (gidx * COARSE < n)
-    fire_grp, ftotal = compact_sparse(fired, cap)
+    fire_grp, ftotal = compact_sparse(fire_groups(mask, n), cap)
     fire_pos = torch.where(fire_grp >= 0, fire_grp * COARSE, -1)
     win, step, st, mtotal = _verify_body(
         vtable, classes, hay2d.reshape(-1), fire_pos, n, W, cap2,

@@ -269,24 +269,26 @@ def shard_teddy_body(
     cap: int,
     cap2: int,
 ) -> tuple[torch.Tensor, ...]:
-    """One rank's prefiltered scan: K1 over its ``[rows, 128]`` shard, K3
-    over the fired COARSE groups, then K4 over ``[shard | right |
+    """One rank's prefiltered scan: K1 over its ``[rows, 128]`` shard, K9
+    and K3 over the fired COARSE groups, then K4 over ``[shard | right |
     VCHUNK zeros]``, where ``right`` is the right neighbour's first ``Hr``
     bytes (zeros on the last rank).  ``n_local`` is ``n - offset`` and may
     exceed the shard.  Returns (global window starts int64 ``[cap]``,
     ftotal, win, step, state, mtotal) as ``_fire_verify`` does."""
-    from ..ops.scan_teddy import COARSE, VCHUNK, _verify_body, fire_mask
+    from ..ops.scan_teddy import (
+        COARSE,
+        VCHUNK,
+        _verify_body,
+        fire_groups,
+        fire_mask,
+    )
 
     LT = shard.numel()
     mask = fire_mask(
         scanner.tables, shard.view(LT // 128, 128), scanner.m,
         scanner.words, scanner.passes, packed=scanner.packed,
     ).reshape(-1)
-    G = LT // COARSE
-    grp = mask.view(G, COARSE).amax(dim=1)
-    gidx = torch.arange(G, device=shard.device)
-    fired = (grp != 0) & (gidx * COARSE < n_local)
-    fire_grp, ftotal = compact_sparse(fired, cap)
+    fire_grp, ftotal = compact_sparse(fire_groups(mask, n_local), cap)
     fire_pos = torch.where(fire_grp >= 0, fire_grp * COARSE, -1)
     hay_pad = torch.cat([shard, right, shard.new_zeros(VCHUNK)])
     # every window ends inside hay_pad, so bytes past its end never count

@@ -10,7 +10,7 @@ the same sections, keys, seeds and sizes, with ``gpu_`` keys where
   baseline) and the native interleaved lanes (``cpu_lanes``), then, on
   data already on the device, the plain lane scan (K2 + K3,
   ``gpu_plain``), the stride-2 scan (K6 + K3, ``gpu_stride2``) and the
-  Teddy pipeline (K1 + K3 + K4, ``gpu_teddy``), Teddy also with its
+  Teddy pipeline (K1 + K9 + K3 + K4, ``gpu_teddy``), Teddy also with its
   staging (``gpu_teddy_end_to_end``) and streamed over four copies of the
   corpus.  Every path's count is held to the native scan's.  ``value`` is
   the best GPU path's GB/s and ``vs_baseline`` its ratio to

@@ -111,8 +111,8 @@ BATCH_EDGE_LENS = (0, 1, 15, 16, 17, 127)
 BATCH_RANDOM_DOCS = 64
 #: the launch counters that must be nonzero after a run on a card
 KERNELS = (
-    "fire", "verify", "lane_scan", "lane_scan_head", "compact",
-    "batch_scan", "stride2_scan", "sparse_scan", "shard_body",
+    "fire", "fire_groups", "verify", "lane_scan", "lane_scan_head",
+    "compact", "batch_scan", "stride2_scan", "sparse_scan", "shard_body",
 )
 #: the tiers that must each serve a call of a run on the CPU
 DEVICE_TIERS = (
@@ -847,10 +847,7 @@ def _verify_inputs(sw: Sweep, pats, hay: bytes):
     n = len(h)
     mask = scan_teddy.fire_mask(sc.tables, hay2d, sc.m, sc.words, sc.passes,
                                 packed=sc.packed).reshape(-1)
-    G = mask.numel() // scan_teddy.COARSE
-    grp = mask.view(G, scan_teddy.COARSE).amax(dim=1)
-    gidx = torch.arange(G, device=mask.device)
-    fired = (grp != 0) & (gidx * scan_teddy.COARSE < n)
+    fired = scan_teddy.fire_groups(mask, n)
     count = int(fired.sum())
     fire_grp, _ = scan_cuda.compact_sparse(fired, max(count, 1))
     fire_pos = torch.where(fire_grp >= 0, fire_grp * scan_teddy.COARSE, -1)

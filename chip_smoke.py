@@ -13,10 +13,11 @@ ranks' layouts against its own single-device output, K5 at the LONG and
 SHORT batches and a rank's row block, K6 also against K2 at its layout and
 on the bailout's match-dense input, K7 also against K2 at its layout for
 the names and for 100,000 names over 16 MiB; K3 at three caps and as one
-kernel a call; K4, the whole Teddy verify body in one launch, against the
-plain ``_verify_body`` in all four outputs at cap2 above and below the
-total, at every piece count, on a sharded rank's padded buffer, and its
-walk alone against the plain walk) and times both.
+kernel a call; K9, the Teddy group stage, on K1's 64 MiB mask and on a
+seeded mask at the edges of ``n``; K4, the whole Teddy verify body in one
+launch, against the plain ``_verify_body`` in all four outputs at cap2
+above and below the total, at every piece count, on a sharded rank's
+padded buffer, and its walk alone against the plain walk) and times both.
 Then it drives every device path through the public API and checks every
 answer against the port's own host tier: ``find_matches_as_indexes`` on a
 64 MiB corpus with 1,000 name patterns (the upstream benchmark's LONG
@@ -135,11 +136,13 @@ TOOLS_MIN_CHECKS = ("--min-tuple-checks", "2000", "--min-list-checks",
                     "1000", "--dense-cases", "2")
 #: the kernels every scaling_bench rank must launch on the card
 SCALING_KERNELS = ("lane_scan", "lane_scan_head", "compact", "shard_body")
+#: the kernels every Teddy call launches on the card: K1, K9, K3, K4
+TEDDY_KERNELS = ("fire", "fire_groups", "compact", "verify")
 #: the kernels each GPU measurement of the bench's north star must launch
 BENCH_KERNELS = {
     "gpu_plain": ("lane_scan", "compact"),
     "gpu_stride2": ("stride2_scan", "compact"),
-    "gpu_teddy": ("fire", "compact", "verify"),
+    "gpu_teddy": ("fire", "fire_groups", "compact", "verify"),
 }
 
 
@@ -167,6 +170,14 @@ def require(cond: bool, what: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def require_groups_with_fire(launches: dict, what: str) -> None:
+    """A Teddy path runs K9 once for every K1 launch (each
+    ``_fire_verify`` or ``shard_teddy_body`` call)."""
+    require(launches["fire_groups"] == launches["fire"],
+            f"{what} launched K9 {launches['fire_groups']} times and K1 "
+            f"{launches['fire']} times")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -385,13 +396,63 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
         "configs": configs,
     }
 
-    # K3 on the Teddy path's shape: the COARSE group mask
+    # K9: the group stage over the 64 MiB K1 mask, bit-equal to its plain
+    # version (the parent's amax composition) at the corpus's n and at the
+    # edges of n, then on seeded masks of 1 and 0x80 bytes at those edges
     mask = got.reshape(-1)
     G = N // scan_teddy.COARSE
-    fired = (mask.view(G, scan_teddy.COARSE).amax(dim=1) != 0) & (
-        torch.arange(G, device=dev) * scan_teddy.COARSE < n
-    )
-    fired_u8 = fired.view(torch.uint8)
+    fired_u8 = _kernels.fire_groups(mask, n)
+    edges = sorted({n, 0, -1, 1, 31, 32, 33, n - 1, n + 1, N // 2 - 1,
+                    N // 2, N // 2 + 1, N - 32, N - 1, N, N + 1,
+                    n - N // 2, -(N // 2)})
+    erng = np.random.default_rng(SEED)
+    seeded = torch.from_numpy(np.where(
+        erng.random(N) < 0.001, np.where(erng.random(N) < 0.5, 1, 0x80), 0
+    ).astype(np.uint8)).to(dev)
+    k9_err = 0
+    for m_k, name_k in ((mask, "the K1 mask"), (seeded, "a seeded mask")):
+        for e in edges:
+            err_e = max_abs_err(
+                _kernels.fire_groups(m_k, e),
+                scan_teddy._fire_groups_plain(m_k, e).to(torch.uint8))
+            require(err_e == 0, f"K9 differs from its plain version on "
+                                f"{name_k} at n={e} ({err_e})")
+            k9_err = max(k9_err, err_e)
+    fired_plain = scan_teddy._fire_groups_plain(mask, n)
+    k9_per_call, k9_dev_ms = profiled(
+        lambda: _kernels.fire_groups(mask, n), only="groups_kernel")
+    grouped = mask.view(G, scan_teddy.COARSE)
+    amax_ms = cuda_ms(lambda: torch.amax(grouped, dim=1), 20)
+    out["fire_groups"] = {
+        "shape": f"mask uint8 [{N}] (K1's, {int(fired_u8.sum())} of {G} "
+                 f"groups fired), n={n}; {len(edges)} edges of n on it and "
+                 "on a seeded mask",
+        "max_abs_err": k9_err,
+        "edges": edges,
+        "ms": cuda_ms(lambda: _kernels.fire_groups(mask, n), 20),
+        "device_ms": k9_dev_ms,
+        "kernels_per_call": k9_per_call,
+        "plain_ms": cuda_ms(
+            lambda: scan_teddy._fire_groups_plain(mask, n), 2),
+        # the parent's composition (amax, arange, multiply, two compares,
+        # and), which the plain version is, over 20 calls and as device
+        # time; the amax alone
+        "composition_ms": cuda_ms(
+            lambda: scan_teddy._fire_groups_plain(mask, n), 20),
+        "composition_device_ms": profiled(
+            lambda: scan_teddy._fire_groups_plain(mask, n))[1],
+        "amax_ms": amax_ms,
+        "amax_device_ms": profiled(lambda: torch.amax(grouped, dim=1))[1],
+        # the mask read once, a byte a group written
+        "bound_ms": bound_ms(N + G),
+        "bound_by": "bytes",
+        # the one call that computes the group OR (not the n test)
+        "library_ms": amax_ms,
+    }
+
+    # K3 on the Teddy path's shape: K9's group flags
+    require(torch.equal(fired_u8, fired_plain.view(torch.uint8)),
+            "K9's flags differ from the parent's composition")
     cap = sc.fire_cap
     fg, ftotal = _kernels.compact(fired_u8, cap)
     fg_p, ftotal_p = scan_cuda._compact_plain(fired_u8, cap)
@@ -965,6 +1026,7 @@ def phase_shard_kernels(dev, names, corpus, long_batch) -> dict:
     the card against the same body on CPU copies of its inputs, which is
     its plain version (every wrapper takes its plain version for CPU
     tensors).  The plain time is a host-clock time on the CPU."""
+    from ahocorasick_rs_tpu_torch import _kernels
     from ahocorasick_rs_tpu_torch.models.automaton import build_automaton
     from ahocorasick_rs_tpu_torch.models.prefilter import build_prefilter
     from ahocorasick_rs_tpu_torch.ops import scan_cuda, scan_teddy
@@ -1038,6 +1100,15 @@ def phase_shard_kernels(dev, names, corpus, long_batch) -> dict:
             mcap = scan_teddy._bucket(mtotal)
         else:
             break
+    # one body on the card is one launch each of K1, K9, K3 and K4
+    before = dict(_kernels.LAUNCHES)
+    sharded.shard_teddy_body(
+        sc[dev], shards[0].to(dev), right.to(dev), n, 0, W, fcap, mcap
+    )
+    body_launches = {k: _kernels.LAUNCHES[k] - before[k]
+                     for k in TEDDY_KERNELS + ("shard_body",)}
+    require(set(body_launches.values()) == {1},
+            f"a sharded Teddy body launched {body_launches}")
     err, ms, plain_ms = run_both(
         sharded.shard_teddy_body, lambda d: (
             sc[d], shards[0].to(d), right.to(d), n, 0, W, fcap, mcap,
@@ -1048,6 +1119,7 @@ def phase_shard_kernels(dev, names, corpus, long_batch) -> dict:
                  f"W={W}, {ftotal} windows (cap {fcap}), {mtotal} matched "
                  f"steps (cap {mcap})",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "launches_a_body": body_launches,
         # the body's own inputs and outputs only (the fire mask is an
         # intermediate, the windows read the shard): shard, right head,
         # fire and verify tables read; window starts, ftotal, the matched
@@ -1131,8 +1203,9 @@ def phase_teddy(port, names_s, text) -> dict:
         require(again == got, "device call differs from the auto call")
         require(ac.stats()["last_backend"] == "teddy", "device call not teddy")
     launches = dict(_kernels.LAUNCHES)
-    for k in ("fire", "compact", "verify"):
+    for k in TEDDY_KERNELS:
         require(launches[k] > 0, f"Teddy path launched no {k} kernel")
+    require_groups_with_fire(launches, "the Teddy path")
     host = host_backend()
     want = port.AhoCorasick(
         names_s, matchkind=kind, implementation=impl, backend=host
@@ -1172,8 +1245,9 @@ def phase_streamed(scanner, corpus) -> dict:
                 require(np.array_equal(a, b),
                         "streamed Teddy differs from one pass")
     launches = dict(_kernels.LAUNCHES)
-    for k in ("fire", "compact", "verify"):
+    for k in TEDDY_KERNELS:
         require(launches[k] > 0, f"streamed Teddy launched no {k} kernel")
+    require_groups_with_fire(launches, "streamed Teddy")
     require(scanner._copy_stream is not None, "no side copy stream was made")
     return {"matches": len(first[0]), "launches": launches,
             "segments": -(-len(corpus) // (STREAM_SEG_MIB << 20)),
@@ -1229,8 +1303,9 @@ def phase_tune(port, names_s, text, want_digest) -> dict:
     got = ac.find_matches_as_indexes(sample)
     require(ac.stats()["last_backend"] == "teddy", "tuned call not teddy")
     launches = dict(_kernels.LAUNCHES)
-    for k in ("fire", "compact", "verify"):
+    for k in TEDDY_KERNELS:
         require(launches[k] > 0, f"tune() launched no {k} kernel")
+    require_groups_with_fire(launches, "tune()")
     host = host_backend()
     want = port.AhoCorasick(
         names_s, matchkind=kind, implementation=impl, backend=host
@@ -1394,6 +1469,8 @@ def phase_batch(port, patterns, docs, teddy_state, tier, kernel) -> dict:
     out["launches"] = dict(_kernels.LAUNCHES)
     require(out["launches"][kernel] > 0, f"{tier} launched no {kernel}")
     require(out["launches"]["compact"] > 0, f"{tier} launched no compact")
+    if kernel == "fire":
+        require_groups_with_fire(out["launches"], tier)
     return out
 
 
@@ -1454,9 +1531,9 @@ SHARD_CALLS = (
 )
 #: the kernels each sharded call must launch (besides the K8 bodies)
 SHARD_KERNELS = {
-    "teddy_sharded": ("fire", "compact", "verify"),
+    "teddy_sharded": TEDDY_KERNELS,
     "sharded": ("lane_scan", "lane_scan_head", "compact"),
-    "teddy_sharded_batch": ("fire", "compact", "verify"),
+    "teddy_sharded_batch": TEDDY_KERNELS,
     "sharded_batch": ("batch_scan", "compact"),
 }
 
@@ -1813,6 +1890,9 @@ def phase_tools() -> dict:
 KERNELS = {
     "fire": ("K1 fire", "ahocorasick_rs_tpu_torch/csrc/teddy.cu",
              "ahocorasick_rs_tpu/ops/scan_teddy.py:187"),
+    "fire_groups": ("K9 fire_groups",
+                    "ahocorasick_rs_tpu_torch/csrc/groups.cu",
+                    "ahocorasick_rs_tpu/ops/scan_teddy.py:375"),
     "lane_scan": ("K2 lane_scan", "ahocorasick_rs_tpu_torch/csrc/scan.cu",
                   "ahocorasick_rs_tpu/ops/scan_jax.py:72"),
     "compact": ("K3 compact", "ahocorasick_rs_tpu_torch/csrc/scan.cu",
@@ -2010,7 +2090,9 @@ def main() -> int:
                       "unfused_kernels_per_call", "walk_ms",
                       "walk_device_ms", "ms_by_pieces",
                       "device_ms_by_pieces", "pieces", "piece_chain_ms",
-                      "window_chain_ms"):
+                      "window_chain_ms", "composition_ms",
+                      "composition_device_ms", "amax_ms", "amax_device_ms",
+                      "edges"):
             if extra in k:
                 rows[-1][extra] = k[extra]
         if key == "fire":
@@ -2025,7 +2107,8 @@ def main() -> int:
             rows[-1]["composite"] = (
                 "per-rank body dispatches, not one kernel: ms is one dense "
                 "body's card time (K2 with head + K3; by_body also has the "
-                "Teddy body, K1 + K3 + K4, and the batch body, K5 + K3); "
+                "Teddy body, K1 + K9 + K3 + K4, and the batch body, K5 + "
+                "K3); "
                 "launches count bodies run on a card; bound_ms counts the "
                 "body's inputs, its compacted outputs and its collectives"
             )

@@ -18,7 +18,9 @@ rank, with no process group; and the Teddy scanner's streamed pipeline,
 pass), times three calls of each on the host clock, then traces one call
 of each with ``torch.profiler``.  For each path it prints one JSON line:
 the wall time of the calls, the host time of each ``ahocorasick:*`` span,
-the device time of each kernel and copy, the union of device activity,
+the device time of each kernel and copy and of each kernel family (the
+port's kernels K1-K9, copies, PyTorch's own kernels), the union of device
+activity,
 the device's idle share of the traced call, and the host-to-device copy
 time with the part of it that ran while a kernel ran.  The Chrome traces go to
 ``chiprun_out/``.  Without a CUDA card it exits non-zero.
@@ -36,6 +38,31 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+#: the port's CUDA kernels by a part of their names (``csrc/*.cu``); any
+#: other kernel is PyTorch's own (``at::`` in its name: reductions such
+#: as ``amax``, elementwise ops, concatenations) and counts as "torch"
+KERNEL_FAMILIES = {
+    "fire_kernel": "K1 fire",
+    "lane_scan_kernel": "K2 lane_scan",
+    "compact_kernel": "K3 compact",
+    "verify_kernel": "K4 verify",
+    "batch_scan_kernel": "K5 batch_scan",
+    "stride2_scan_kernel": "K6 stride2_scan",
+    "sparse_scan_kernel": "K7 sparse_scan",
+    "groups_kernel": "K9 fire_groups",
+}
+
+
+def kernel_family(name: str) -> str:
+    """The family of a device event's name: a port kernel's, "copies"
+    (memcpy, memset) or "torch"."""
+    if name.startswith(("Memcpy", "Memset")):
+        return "copies"
+    if "at::" not in name:
+        for part, family in KERNEL_FAMILIES.items():
+            if part in name:
+                return family
+    return "torch"
 
 
 def device_busy_us(events) -> tuple[float, dict]:
@@ -112,6 +139,10 @@ def profile_path(label: str, call) -> dict:
         if e.name.startswith("ahocorasick:"):
             spans[e.name] = spans.get(e.name, 0.0) + e.cpu_time_total / 1e3
     busy_us, by_name = device_busy_us(events)
+    by_family: dict = {}
+    for name, us in by_name.items():
+        family = kernel_family(name)
+        by_family[family] = by_family.get(family, 0.0) + us / 1e3
     copy_us, beside_us = copy_beside_kernels_us(events)
     if not by_name:
         raise SystemExit(f"{label}: the profiler saw no device activity")
@@ -129,6 +160,7 @@ def profile_path(label: str, call) -> dict:
         # index mapping
         "outside_spans_ms": outside,
         "device_ms_by_name": {k: v / 1e3 for k, v in by_name.items()},
+        "device_ms_by_family": by_family,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / traced_ms,
         "htod_copy_ms": copy_us / 1e3,

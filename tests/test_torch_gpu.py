@@ -283,6 +283,7 @@ def test_verify_body_kernel_equals_plain(cuda, engine: str) -> None:
     total = _assert_body_equals_plain(tabs, hay, fire_pos, n, W, 4096)
     assert _kernels.LAUNCHES["verify"] == before["verify"] + 1
     assert _kernels.LAUNCHES["compact"] == before["compact"]
+    assert _kernels.LAUNCHES["fire_groups"] == before["fire_groups"]
     assert 8 < total < 4096
     _assert_body_equals_plain(tabs, hay, fire_pos, n, W, total // 3)
     for k in range(1, 9):
@@ -447,6 +448,7 @@ def test_verify_body_kernel_is_one_launch(cuda) -> None:
     assert all("verify_kernel" in k for k in kernels), kernels
     assert launched["verify"] == 10
     assert launched["compact"] == 0
+    assert launched["fire_groups"] == 0
 
 
 @pytest.mark.parametrize("engine", ["dfa", "classed"])
@@ -488,6 +490,7 @@ def test_api_device_tier_counts_launches(cuda) -> None:
     assert ac.find_matches_as_indexes(hay) == want
     assert ac.stats()["last_backend"] == "teddy"
     assert _kernels.LAUNCHES["fire"] > 0 and _kernels.LAUNCHES["verify"] > 0
+    assert _kernels.LAUNCHES["fire_groups"] == _kernels.LAUNCHES["fire"]
     _kernels.reset_launches()
     dense = AhoCorasick(
         names, implementation=Implementation.ContiguousNFA,
@@ -1267,3 +1270,116 @@ def test_conformance_sweep_first_cases(cuda, tmp_path) -> None:
     assert rec["mismatches"] == []
     assert rec["uncovered"] == []
     assert rec["cases"] == 50
+
+
+# --- K9: the Teddy group stage ---------------------------------------------
+
+
+def _group_edges(N: int) -> list[int]:
+    """``n`` at the edges K9 must keep: none, negative, a group boundary
+    and one either side of it (the first and the middle one), the last
+    group's start, the end and past it."""
+    mid = (N // 2) // 32 * 32
+    return sorted({0, -1, -(1 << 20), 1, 31, 32, 33, mid - 1, mid, mid + 1,
+                   N - 32, N - 31, N - 1, N, N + 1, 1 << 40})
+
+
+def _assert_groups_equal_plain(mask: torch.Tensor, n: int) -> None:
+    got = _kernels.fire_groups(mask, n)
+    want = scan_teddy._fire_groups_plain(mask, n)
+    assert got.dtype == torch.uint8
+    assert torch.equal(got, want.to(torch.uint8)), n
+
+
+@pytest.mark.parametrize("N", [32, 4096 + 32, 1 << 20, 64 << 20])
+@pytest.mark.parametrize("density", [0.0, 1e-4, 0.01, 1.0])
+def test_fire_groups_kernel_equals_plain(cuda, N: int, density: float
+                                         ) -> None:
+    """K9 against its plain version on the card, bit for bit: random masks
+    of 1 and 0x80 bytes from 32 B to 64 MiB, at every edge of ``n``."""
+    rng = np.random.default_rng(N + int(density * 1e4))
+    hit = rng.random(N) < density
+    byte = np.where(rng.random(N) < 0.5, 1, 0x80).astype(np.uint8)
+    mask = torch.from_numpy(np.where(hit, byte, 0).astype(np.uint8)).to(cuda)
+    for n in _group_edges(N):
+        _assert_groups_equal_plain(mask, n)
+
+
+def test_fire_groups_kernel_on_names_mask(cuda) -> None:
+    """K9 on the real K1 mask of the names corpus (1,000 names, 16 MiB,
+    seed 0), at the corpus's length, a shorter ``n`` and a rank's
+    ``n - offset``."""
+    from ahocorasick_rs_tpu_torch.tools._synth import synth_corpus, synth_names
+
+    rng = np.random.default_rng(0)
+    names = synth_names(1000, rng)
+    corpus = synth_corpus(16 << 20, names, rng)
+    am = build_automaton(names)
+    sc = scan_teddy.TeddyScanner(am, build_prefilter(names),
+                                 scan_cuda.DeviceTables(am, "dfa", cuda))
+    hay2d = sc.stage(corpus)
+    mask = scan_teddy.fire_mask(sc.tables, hay2d, sc.m, sc.words, sc.passes,
+                                packed=sc.packed).reshape(-1)
+    assert 0 < int(mask.sum()) < mask.numel()
+    for n in (len(corpus), len(corpus) - 100, len(corpus) - (8 << 20),
+              mask.numel(), -(8 << 20)):
+        _assert_groups_equal_plain(mask, n)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 4, 8, 16])
+def test_fire_groups_kernel_unaligned_view(cuda, offset: int) -> None:
+    """A mask view that is not 16-byte aligned is read a byte at a time
+    (the 16-byte-aligned view at offset 16 takes the tiled path): every
+    view equals the plain version."""
+    N = (1 << 20) + 96
+    rng = np.random.default_rng(offset)
+    base = torch.from_numpy(
+        (rng.random(N + 64) < 0.002).astype(np.uint8) * 0x80).to(cuda)
+    view = base[offset : offset + N]
+    assert (view.data_ptr() % 16 == 0) == (offset == 16)
+    for n in _group_edges(N):
+        _assert_groups_equal_plain(view, n)
+
+
+def test_fire_groups_kernel_is_one_launch(cuda) -> None:
+    """A ``fire_groups`` call is one K9 kernel on the card and one count."""
+    mask = torch.from_numpy(
+        (np.random.default_rng(9).random(4 << 20) < 0.01).astype(np.uint8)
+    ).to(cuda)
+    _kernels.fire_groups(mask, 3 << 20)
+    torch.cuda.synchronize()
+    kernels, launched = _traced_kernels(
+        lambda: _kernels.fire_groups(mask, 3 << 20))
+    assert len(kernels) == 1 and "groups_kernel" in kernels[0], kernels
+    assert launched["fire_groups"] == 1
+
+
+def test_teddy_calls_launch_fire_groups_with_fire(cuda) -> None:
+    """Every Teddy call on the card (whole buffer, streamed, the sharded
+    Teddy body in a world of one rank) launches K9 once a K1 launch, and
+    K3 and K4 as before, once each a K1 launch."""
+    names = [n.decode() for n in _names(121, 50)]
+    hay = _corpus(122, 3 << 20, [n.encode() for n in names], 3000)
+    want = AhoCorasick(names, backend="native", device=cuda
+                       ).find_matches_as_indexes(hay.decode())
+    for backend, tier in (("device", "teddy"), ("sharded", "teddy_sharded")):
+        ac = AhoCorasick(names, backend=backend, device=cuda)
+        _kernels.reset_launches()
+        assert ac.find_matches_as_indexes(hay.decode()) == want
+        assert ac.stats()["last_backend"] == tier
+        got = dict(_kernels.LAUNCHES)
+        assert got["fire"] > 0
+        assert got["fire_groups"] == got["fire"] == got["compact"], got
+        assert got["verify"] == got["fire"], got
+    am = build_automaton([n.encode() for n in names])
+    sc = scan_teddy.TeddyScanner(am, build_prefilter(
+        [n.encode() for n in names]), scan_cuda.DeviceTables(am, "dfa", cuda))
+    arr = np.frombuffer(hay, np.uint8)
+    _kernels.reset_launches()
+    streamed = sc.occurrences_streamed(arr, seg_bytes=1 << 20)
+    whole = sc.occurrences(arr)
+    for a, b in zip(streamed, whole):
+        np.testing.assert_array_equal(a, b)
+    got = dict(_kernels.LAUNCHES)
+    assert got["fire"] >= 4
+    assert got["fire_groups"] == got["fire"] == got["compact"], got
