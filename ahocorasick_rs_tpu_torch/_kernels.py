@@ -10,10 +10,11 @@ binds them, with ``c_void_p`` for every pointer and for the stream.
 
 The launchers below check device, dtype, shape and contiguity, allocate
 every output and scratch buffer with ``torch.empty``, launch on the
-current stream and raise if the entry point reports a CUDA error.  Each
-adds one to its entry in :data:`LAUNCHES`, and nothing else does, so a run
-can show which kernels a path went through.  Nothing here is imported or
-built until a CUDA tensor reaches a launcher.
+current stream of the tensors' device under :func:`device_guard` and
+raise if the entry point reports a CUDA error.  Each adds one to its entry
+in :data:`LAUNCHES` (:func:`count_launch`), and nothing else does, so a
+run can show which kernels a path went through.  Nothing here is imported
+or built until a CUDA tensor reaches a launcher.
 """
 
 from __future__ import annotations
@@ -97,10 +98,31 @@ _SIGNATURES = {
 }
 
 
+_count_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    FIRE_CONFIGS.clear()
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        FIRE_CONFIGS.clear()
+
+
+def count_launch(name: str, config: Optional[tuple] = None) -> None:
+    """Add one to ``LAUNCHES[name]`` (and to ``FIRE_CONFIGS[config]``):
+    under a lock, since the thread ranks of a local mesh launch at once."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+        if config is not None:
+            FIRE_CONFIGS[config] = FIRE_CONFIGS.get(config, 0) + 1
+
+
+def device_guard(dev: torch.device) -> torch.cuda.device:
+    """The guard every launch runs under.  A ``<<<>>>`` launch,
+    ``cudaGetDevice`` and ``cudaFuncSetAttribute`` (K1's dynamic shared
+    memory, the sub-lane scans' carveout) act on the CUDA runtime's current
+    device, which belongs to the host thread, not on the tensors' device."""
+    return torch.cuda.device(dev)
 
 
 def _nvcc() -> str:
@@ -322,19 +344,20 @@ def _lane_scan_at(
         raise ValueError(
             f"lane_scan: sub-lanes of {S} bytes do not fit T={T}, halo={halo}"
         )
-    states = torch.empty(L * T, dtype=torch.int32, device=dev)
-    mask = torch.empty(L * T, dtype=torch.uint8, device=dev)
-    lib = build()["scan"]
-    _raise_on(lib.ac_lane_scan(
-        flagged.data_ptr(), flagged.shape[1], classes.data_ptr(),
-        int(use_classes), hay.data_ptr(), n,
-        None if head is None else head.data_ptr(), L, T, halo, S,
-        carveout, states.data_ptr(), mask.data_ptr(),
-        _stream(dev),
-    ), "lane_scan")
-    LAUNCHES["lane_scan"] += 1
+    with device_guard(dev):
+        states = torch.empty(L * T, dtype=torch.int32, device=dev)
+        mask = torch.empty(L * T, dtype=torch.uint8, device=dev)
+        lib = build()["scan"]
+        _raise_on(lib.ac_lane_scan(
+            flagged.data_ptr(), flagged.shape[1], classes.data_ptr(),
+            int(use_classes), hay.data_ptr(), n,
+            None if head is None else head.data_ptr(), L, T, halo, S,
+            carveout, states.data_ptr(), mask.data_ptr(),
+            _stream(dev),
+        ), "lane_scan")
+    count_launch("lane_scan")
     if head is not None:
-        LAUNCHES["lane_scan_head"] += 1
+        count_launch("lane_scan_head")
     return states, mask
 
 
@@ -384,16 +407,17 @@ def compact(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
     N = mask.numel()
     if N >= 1 << 31 or cap < 1:
         raise ValueError(f"compact: N={N}, cap={cap} out of range")
-    lib = build()["scan"]
-    nb = -(-N // lib.ac_compact_chunk())
-    idx = torch.empty(cap, dtype=torch.int32, device=dev)
-    total = torch.empty(1, dtype=torch.int32, device=dev)
-    err = _launch_with_lookback(dev, nb, lambda scratch, epoch, stream: (
-        lib.ac_compact(mask.data_ptr(), N, cap, idx.data_ptr(),
-                       total.data_ptr(), scratch, epoch, stream)
-    ))
+    with device_guard(dev):
+        lib = build()["scan"]
+        nb = -(-N // lib.ac_compact_chunk())
+        idx = torch.empty(cap, dtype=torch.int32, device=dev)
+        total = torch.empty(1, dtype=torch.int32, device=dev)
+        err = _launch_with_lookback(dev, nb, lambda scratch, epoch, stream: (
+            lib.ac_compact(mask.data_ptr(), N, cap, idx.data_ptr(),
+                           total.data_ptr(), scratch, epoch, stream)
+        ))
     _raise_on(err, "compact")
-    LAUNCHES["compact"] += 1
+    count_launch("compact")
     return idx, total
 
 
@@ -428,15 +452,14 @@ def fire(
             f"fire: tile {tile} is not a multiple of {FIRE_TILE_STEP} in "
             f"[{FIRE_TILE_STEP}, {FIRE_TILE_MAX}]"
         )
-    out = torch.empty_like(hay)
-    lib = build()["teddy"]
-    _raise_on(lib.ac_fire(
-        packed.data_ptr(), rows, hay.data_ptr(), hay.numel(), m, words,
-        passes, tile, out.data_ptr(), _stream(dev),
-    ), "fire")
-    LAUNCHES["fire"] += 1
-    key = (m, words, passes)
-    FIRE_CONFIGS[key] = FIRE_CONFIGS.get(key, 0) + 1
+    with device_guard(dev):
+        out = torch.empty_like(hay)
+        lib = build()["teddy"]
+        _raise_on(lib.ac_fire(
+            packed.data_ptr(), rows, hay.data_ptr(), hay.numel(), m, words,
+            passes, tile, out.data_ptr(), _stream(dev),
+        ), "fire")
+    count_launch("fire", (m, words, passes))
     return out
 
 
@@ -464,11 +487,12 @@ def fire_groups(mask: torch.Tensor, n: int) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError("fire_groups kernel needs CUDA tensors")
     _check("mask", mask, torch.uint8, dev, 1)
-    out = torch.empty(N // FIRE_GROUP, dtype=torch.uint8, device=dev)
-    _raise_on(build()["groups"].ac_fire_groups(
-        mask.data_ptr(), N, int(n), out.data_ptr(), _stream(dev),
-    ), "fire_groups")
-    LAUNCHES["fire_groups"] += 1
+    with device_guard(dev):
+        out = torch.empty(N // FIRE_GROUP, dtype=torch.uint8, device=dev)
+        _raise_on(build()["groups"].ac_fire_groups(
+            mask.data_ptr(), N, int(n), out.data_ptr(), _stream(dev),
+        ), "fire_groups")
+    count_launch("fire_groups")
     return out
 
 
@@ -567,15 +591,16 @@ def verify(
     M, halo, k, L, D = _verify_args(
         vtable, classes, hay, fire_pos, n, W, halo, pieces, "verify"
     )
-    out = torch.empty((M, W), dtype=torch.int32, device=dev)
-    lib = build()["verify"]
-    _raise_on(lib.ac_verify(
-        vtable.data_ptr(), vtable.shape[1], classes.data_ptr(),
-        int(use_classes), hay.data_ptr(), hay.numel(), n,
-        fire_pos.data_ptr(), M, W, halo, k, L, D, out.data_ptr(),
-        _stream(dev),
-    ), "verify")
-    LAUNCHES["verify"] += 1
+    with device_guard(dev):
+        out = torch.empty((M, W), dtype=torch.int32, device=dev)
+        lib = build()["verify"]
+        _raise_on(lib.ac_verify(
+            vtable.data_ptr(), vtable.shape[1], classes.data_ptr(),
+            int(use_classes), hay.data_ptr(), hay.numel(), n,
+            fire_pos.data_ptr(), M, W, halo, k, L, D, out.data_ptr(),
+            _stream(dev),
+        ), "verify")
+    count_launch("verify")
     return out
 
 
@@ -599,21 +624,22 @@ def verify_body(
     )
     if cap2 < 1:
         raise ValueError(f"verify_body: cap2={cap2} < 1")
-    lib = build()["verify"]
-    out = torch.empty(3 * cap2 + 1, dtype=torch.int32, device=dev)
-    win, step, st, total = out.split((cap2, cap2, cap2, 1))
-    nb = lib.ac_verify_blocks(M, k)
-    err = _launch_with_lookback(dev, nb, lambda scratch, epoch, stream: (
-        lib.ac_verify_body(
-            vtable.data_ptr(), vtable.shape[1], classes.data_ptr(),
-            int(use_classes), hay.data_ptr(), hay.numel(), n,
-            fire_pos.data_ptr(), M, W, halo, k, L, D, cap2, win.data_ptr(),
-            step.data_ptr(), st.data_ptr(), total.data_ptr(), scratch, epoch,
-            stream,
-        )
-    ))
+    with device_guard(dev):
+        lib = build()["verify"]
+        out = torch.empty(3 * cap2 + 1, dtype=torch.int32, device=dev)
+        win, step, st, total = out.split((cap2, cap2, cap2, 1))
+        nb = lib.ac_verify_blocks(M, k)
+        err = _launch_with_lookback(dev, nb, lambda scratch, epoch, stream: (
+            lib.ac_verify_body(
+                vtable.data_ptr(), vtable.shape[1], classes.data_ptr(),
+                int(use_classes), hay.data_ptr(), hay.numel(), n,
+                fire_pos.data_ptr(), M, W, halo, k, L, D, cap2,
+                win.data_ptr(), step.data_ptr(), st.data_ptr(),
+                total.data_ptr(), scratch, epoch, stream,
+            )
+        ))
     _raise_on(err, "verify_body")
-    LAUNCHES["verify"] += 1
+    count_launch("verify")
     return win, step, st, total
 
 
@@ -671,15 +697,16 @@ def _stride2_scan_at(
             f"stride2_scan: sub-lanes of {S} bytes do not fit T={T}, "
             f"halo={halo}"
         )
-    states = torch.empty(L * T, dtype=torch.int32, device=dev)
-    mask = torch.empty(L * T, dtype=torch.uint8, device=dev)
-    lib = build()["stride2"]
-    _raise_on(lib.ac_stride2_scan(
-        packed2.data_ptr(), table_classed.data_ptr(), C, classes.data_ptr(),
-        hay.data_ptr(), n, L, T, halo, S, carveout,
-        states.data_ptr(), mask.data_ptr(), _stream(dev),
-    ), "stride2_scan")
-    LAUNCHES["stride2_scan"] += 1
+    with device_guard(dev):
+        states = torch.empty(L * T, dtype=torch.int32, device=dev)
+        mask = torch.empty(L * T, dtype=torch.uint8, device=dev)
+        lib = build()["stride2"]
+        _raise_on(lib.ac_stride2_scan(
+            packed2.data_ptr(), table_classed.data_ptr(), C,
+            classes.data_ptr(), hay.data_ptr(), n, L, T, halo, S, carveout,
+            states.data_ptr(), mask.data_ptr(), _stream(dev),
+        ), "stride2_scan")
+    count_launch("stride2_scan")
     return states, mask
 
 
@@ -781,16 +808,17 @@ def _sparse_scan_at(
             f"sparse_scan: sub-lanes of {S} bytes do not fit T={T}, "
             f"halo={halo}"
         )
-    states = torch.empty(L * T, dtype=torch.int32, device=dev)
-    mask = torch.empty(L * T, dtype=torch.uint8, device=dev)
-    lib = build()["sparse"]
-    _raise_on(lib.ac_sparse_scan(
-        tabs.records.data_ptr(), tabs.labels.data_ptr(),
-        tabs.targets.data_ptr(), tabs.root_next.data_ptr(), hay.data_ptr(),
-        n, L, T, halo, S, carveout, states.data_ptr(), mask.data_ptr(),
-        _stream(dev),
-    ), "sparse_scan")
-    LAUNCHES["sparse_scan"] += 1
+    with device_guard(dev):
+        states = torch.empty(L * T, dtype=torch.int32, device=dev)
+        mask = torch.empty(L * T, dtype=torch.uint8, device=dev)
+        lib = build()["sparse"]
+        _raise_on(lib.ac_sparse_scan(
+            tabs.records.data_ptr(), tabs.labels.data_ptr(),
+            tabs.targets.data_ptr(), tabs.root_next.data_ptr(),
+            hay.data_ptr(), n, L, T, halo, S, carveout, states.data_ptr(),
+            mask.data_ptr(), _stream(dev),
+        ), "sparse_scan")
+    count_launch("sparse_scan")
     return states, mask
 
 
@@ -853,16 +881,17 @@ def _batch_scan_at(
             f"batch_scan: sub-lanes of {S} bytes do not fit T={T}, "
             f"halo={halo}"
         )
-    states = torch.empty(B * T, dtype=torch.int32, device=dev)
-    mask = torch.empty(B * T, dtype=torch.uint8, device=dev)
-    lib = build()["batch"]
-    _raise_on(lib.ac_batch_scan(
-        flagged.data_ptr(), flagged.shape[1], classes.data_ptr(),
-        int(use_classes), hay2d.data_ptr(), lens.data_ptr(), B, T, halo, S,
-        carveout, states.data_ptr(), mask.data_ptr(),
-        _stream(dev),
-    ), "batch_scan")
-    LAUNCHES["batch_scan"] += 1
+    with device_guard(dev):
+        states = torch.empty(B * T, dtype=torch.int32, device=dev)
+        mask = torch.empty(B * T, dtype=torch.uint8, device=dev)
+        lib = build()["batch"]
+        _raise_on(lib.ac_batch_scan(
+            flagged.data_ptr(), flagged.shape[1], classes.data_ptr(),
+            int(use_classes), hay2d.data_ptr(), lens.data_ptr(), B, T, halo,
+            S, carveout, states.data_ptr(), mask.data_ptr(),
+            _stream(dev),
+        ), "batch_scan")
+    count_launch("batch_scan")
     return states, mask
 
 
@@ -887,11 +916,13 @@ def probe_reduce(x: torch.Tensor) -> torch.Tensor:
     """P1: uint8 [R/16, 128], the max over each group of 16 rows of a
     uint8 [R, 128] array (R a multiple of 1024)."""
     rows = _probe_args("probe_reduce", x)
-    out = torch.empty((rows // 16, 128), dtype=torch.uint8, device=x.device)
-    _raise_on(build()["probe"].ac_probe_reduce(
-        x.data_ptr(), rows, out.data_ptr(), _stream(x.device),
-    ), "probe_reduce")
-    LAUNCHES["probe_reduce"] += 1
+    with device_guard(x.device):
+        out = torch.empty((rows // 16, 128), dtype=torch.uint8,
+                          device=x.device)
+        _raise_on(build()["probe"].ac_probe_reduce(
+            x.data_ptr(), rows, out.data_ptr(), _stream(x.device),
+        ), "probe_reduce")
+    count_launch("probe_reduce")
     return out
 
 
@@ -899,9 +930,10 @@ def probe_rollrows(x: torch.Tensor) -> torch.Tensor:
     """P2: each row of a uint8 [R, 128] array ANDed with the next row of
     its 1024-row block (wrapping inside the block)."""
     rows = _probe_args("probe_rollrows", x)
-    out = torch.empty_like(x)
-    _raise_on(build()["probe"].ac_probe_rollrows(
-        x.data_ptr(), rows, out.data_ptr(), _stream(x.device),
-    ), "probe_rollrows")
-    LAUNCHES["probe_rollrows"] += 1
+    with device_guard(x.device):
+        out = torch.empty_like(x)
+        _raise_on(build()["probe"].ac_probe_rollrows(
+            x.data_ptr(), rows, out.data_ptr(), _stream(x.device),
+        ), "probe_rollrows")
+    count_launch("probe_rollrows")
     return out

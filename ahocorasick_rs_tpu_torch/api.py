@@ -17,11 +17,14 @@ Execution tiers (picked per call by haystack size, overridable with
                 matcher's torch device (``ops/scan_cuda.py``), or the
                 prefiltered Teddy pipeline (``ops/scan_teddy.py``) when it
                 pays; streams arbitrarily large haystacks.
-* ``sharded`` — the same scans with the haystack split across the ranks
-                of a ``torch.distributed`` group (``parallel/sharded.py``);
-                selected automatically when a ``mesh=`` is passed and the
-                haystack reaches the device tier, or forced with
-                ``backend="sharded"`` (without a mesh: the default process
+* ``sharded`` — the same scans with the haystack split across ranks
+                (``parallel/sharded.py``): the threads of a local mesh,
+                one a device of this process, or the processes of a
+                ``torch.distributed`` group; selected automatically when a
+                ``mesh=`` is passed and the haystack reaches the device
+                tier, or forced with ``backend="sharded"`` (without a
+                mesh: ``make_mesh()``, the default process group or every
+                local card; a matcher on the CPU takes the default process
                 group, or a world of one rank).
 
 The ``*_batch`` methods scan many documents in one device dispatch
@@ -48,7 +51,7 @@ if TYPE_CHECKING:
     from .models.native import DenseScanner
     from .ops.scan_cuda import DeviceTables
     from .ops.scan_teddy import TeddyScanner
-    from .parallel.sharded import MeshLike, ShardGroup
+    from .parallel.sharded import LocalMesh, MeshLike, ShardGroup
 
     if sys.version_info >= (3, 12):
         from collections.abc import Buffer
@@ -179,8 +182,8 @@ class _MatcherBase:
     _backend: str
     _byte_patterns: list[bytes]
     _device_tables = None
-    #: the ranks of the sharded scan (``parallel.sharded.ShardGroup``)
-    _mesh: Optional["ShardGroup"] = None
+    #: the ranks of the sharded scan (``parallel.sharded.as_group``)
+    _mesh: Union["ShardGroup", "LocalMesh", None] = None
     _teddy = None
     _teddy_state = "auto"  # "auto" | "off" | "force"
     _counters = None  # scan observability, created on first scan
@@ -542,13 +545,19 @@ class _MatcherBase:
             )
         return self._device_tables
 
-    def _shard_group(self) -> "ShardGroup":
-        """The matcher's ranks: its ``mesh=``, else (made once) the
-        default process group or a world of one rank."""
+    def _shard_group(self) -> Union["ShardGroup", "LocalMesh"]:
+        """The matcher's ranks: its ``mesh=``, else (made once)
+        ``make_mesh()``, as the JAX package's API falls back to its
+        ``make_mesh()``: the default process group, or every local card.
+        A matcher on the CPU keeps the default process group or a world of
+        one rank."""
         if self._mesh is None:
             from .parallel import sharded as _sharded
 
-            self._mesh = _sharded.make_mesh()
+            self._mesh = (
+                _sharded.make_mesh() if self._device.type == "cuda"
+                else _sharded.as_group(None)
+            )
         return self._mesh
 
     # -- batched many-small-haystack path ------------------------------
@@ -1169,8 +1178,9 @@ class AhoCorasick(_MatcherBase):
     Extras (keyword-only): ``backend=`` forces an execution tier;
     ``device=`` names the torch device of the device tier (default
     ``"cuda"``; without a card the caller must pass ``"cpu"``); ``mesh=``
-    (a 1-D ``torch.distributed`` ``DeviceMesh`` or a ``ProcessGroup``)
-    routes device-tier scans through the sharded scan across its ranks.
+    (``parallel.sharded.make_mesh()``'s local mesh, or a 1-D
+    ``torch.distributed`` ``DeviceMesh`` or a ``ProcessGroup``) routes
+    device-tier scans through the sharded scan across its ranks.
     """
 
     def __init__(

@@ -591,6 +591,22 @@ class DeviceTables:
         )
         #: adaptive initial compaction capacity (sticky across calls)
         self.last_cap = 4096
+        self._packed2_max_bytes = packed2_max_bytes
+        self._copies: dict[torch.device, DeviceTables] = {}
+
+    def on(self, device: torch.device | str) -> "DeviceTables":
+        """These tables on ``device``: ``self`` on its own device, else a
+        copy made on first use and kept.  Its flagged table is built here,
+        so the thread ranks of a local mesh that share it only read it."""
+        device = torch.device(device)
+        t = self if device == self.device else self._copies.get(device)
+        if t is None:
+            t = self._copies[device] = DeviceTables(
+                self._am, self.engine, device, self._packed2_max_bytes
+            )
+        if t.table is not None:
+            t.lane_table()
+        return t
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)

@@ -333,6 +333,22 @@ class TeddyScanner:
         self.worthwhile = True
         #: side stream of the streamed pipeline's copies (CUDA, made once)
         self._copy_stream: torch.cuda.Stream | None = None
+        self._pf, self._dense = pf, tables
+        self._copies: dict[torch.device, TeddyScanner] = {}
+
+    def on(self, device: torch.device | str) -> "TeddyScanner":
+        """This scanner on ``device``: ``self`` on its own device, else a
+        copy with the same prefilter over the dense tables' copy there,
+        made on first use and kept (its sticky capacities are its own)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        sc = self._copies.get(device)
+        if sc is None:
+            sc = self._copies[device] = TeddyScanner(
+                self.am, self._pf, self._dense.on(device)
+            )
+        return sc
 
     def stage(
         self, hay: np.ndarray, stream: torch.cuda.Stream | None = None

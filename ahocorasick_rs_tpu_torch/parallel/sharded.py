@@ -1,8 +1,18 @@
-"""Data-parallel sharded haystack scan over ``torch.distributed`` (K8).
+"""Data-parallel sharded haystack scan (K8).
 
 The counterpart of the JAX package's ``parallel/sharded.py``, which runs
-one program over a device mesh.  Here every rank is a process with its own
-device (the matcher's ``device=``) that runs the same Python:
+one program over a device mesh.  Here every rank runs the same Python on
+its own device, in one of two forms:
+
+* a process of a ``torch.distributed`` group (the matcher's ``device=``),
+  whose exchange is :class:`ShardGroup`;
+* a thread of this process, one per device of a :class:`LocalMesh`
+  (:func:`make_mesh`: every local card, as the JAX package's mesh over
+  ``jax.devices()``), whose exchange is :class:`ThreadGroup`.  The scan
+  functions take such a mesh, run themselves on its thread ranks with
+  the tables copied to each rank's device, and return rank 0's result.
+
+In both forms:
 
 * each rank holds the automaton's tables on its device and the whole
   haystack on the host, and stages only its own contiguous byte range;
@@ -28,7 +38,8 @@ its right neighbour.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Optional, Union
+import threading
+from typing import TYPE_CHECKING, Callable, Optional, Sequence, TypeVar, Union
 
 import numpy as np
 import torch
@@ -81,23 +92,231 @@ class ShardGroup:
         return torch.stack(parts)
 
 
-MeshLike = Union["DeviceMesh", dist.ProcessGroup, ShardGroup, None]
+class Ring:
+    """The exchange of one call's thread ranks: a slot a rank and a
+    barrier.  :meth:`abort` breaks the barrier: every rank waiting on it,
+    or reaching it later, raises ``threading.BrokenBarrierError`` at once.
+    A wait that every rank had already reached still returns, which
+    ``threading.Barrier.abort`` does not promise, so a rank that fails
+    after the last exchange does not fail the others."""
+
+    def __init__(self, size: int) -> None:
+        self.slots: list = [None] * size
+        self._size = size
+        self._arrived = 0
+        self._round = 0
+        self._broken = False
+        self._cond = threading.Condition()
+
+    def wait(self) -> None:
+        with self._cond:
+            if self._broken:
+                raise threading.BrokenBarrierError
+            mine = self._round
+            self._arrived += 1
+            if self._arrived == self._size:
+                self._arrived = 0
+                self._round += 1
+                self._cond.notify_all()
+                return
+            while self._round == mine and not self._broken:
+                self._cond.wait()
+            if self._round == mine:
+                raise threading.BrokenBarrierError
+
+    def abort(self) -> None:
+        with self._cond:
+            self._broken = True
+            self._cond.notify_all()
 
 
-def make_mesh() -> ShardGroup:
-    """Every rank of the default process group, or a world of one rank
-    when ``torch.distributed`` is not initialized."""
+class ThreadGroup(ShardGroup):
+    """Rank ``rank`` of ``ring``'s ranks, one thread each, on ``device``:
+    ``all_gather`` as a process group does it, through the ring's slots.
+
+    A rank publishes a copy of its tensor with an event recorded on its
+    current stream after the copy.  A reader's stream on the tensor's
+    device waits for that event, and the tensor is ``record_stream``-ed to
+    that stream, so that the caching allocator does not hand its memory
+    out again while the read is queued; a tensor on another device is then
+    copied to the reader's.  The second barrier keeps a rank from
+    publishing again before every rank has queued its reads.
+    """
+
+    def __init__(
+        self, ring: Ring, rank: int, device: Union[str, torch.device] = "cpu"
+    ) -> None:
+        self.group = None
+        self.ring = ring
+        self.rank = rank
+        self.size = len(ring.slots)
+        self.device = torch.device(device)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        mine = t.clone()
+        ready = None
+        if mine.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(mine.device))
+        self.ring.slots[self.rank] = (mine, ready)
+        self.ring.wait()
+        parts = []
+        for src, ev in self.ring.slots:
+            if ev is not None:
+                reader = torch.cuda.current_stream(src.device)
+                reader.wait_event(ev)
+                src.record_stream(reader)
+            parts.append(src.to(self.device, non_blocking=True))
+        out = torch.stack(parts)
+        self.ring.wait()  # nobody publishes again before all read
+        return out
+
+
+_R = TypeVar("_R")
+
+
+class LocalMesh:
+    """A mesh of this process's devices: rank ``r`` is a thread on
+    ``devices[r]`` (repeats allowed: ranks that share a card each run on
+    a stream of their own).
+
+    :meth:`run` calls ``fn(group)`` on every rank at once, each with a
+    :class:`ThreadGroup` of one :class:`Ring`, and returns every rank's
+    result.  A rank that raises aborts the ring, so the other ranks fail
+    at their next exchange instead of waiting for it; :meth:`run` joins
+    every thread and raises the first rank's own error.  Calls on one mesh
+    run one at a time.
+    """
+
+    def __init__(self, devices: Sequence[Union[str, torch.device]]) -> None:
+        devs = [torch.device(d) for d in devices]
+        if not devs:
+            raise ValueError("a local mesh needs at least one device")
+        for d in devs:
+            if d.type not in ("cuda", "cpu"):
+                raise ValueError(f"a local mesh takes CUDA or CPU devices, "
+                                 f"not {d}")
+        if any(d.type == "cuda" for d in devs) and (
+            not torch.cuda.is_available()
+        ):
+            raise RuntimeError("CUDA is not available; name the CPU to run "
+                               "a local mesh there")
+        self.devices = [
+            torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d
+            for d in devs
+        ]
+        self.size = len(self.devices)
+        self._streams = [
+            torch.cuda.Stream(d) if d.type == "cuda" else None
+            for d in self.devices
+        ]
+        self._lock = threading.Lock()
+
+    def run(self, fn: Callable[[ThreadGroup], _R]) -> list[_R]:
+        with self._lock:
+            ring = Ring(self.size)
+            out: list = [None] * self.size
+            errors: list[Optional[BaseException]] = [None] * self.size
+            # the ranks' streams start after the caller's queued work (the
+            # tables' uploads) on each device
+            ready = {}
+            for d in self.devices:
+                if d.type == "cuda" and d not in ready:
+                    ready[d] = torch.cuda.Event()
+                    ready[d].record(torch.cuda.current_stream(d))
+
+            def rank(r: int) -> None:
+                dev, stream = self.devices[r], self._streams[r]
+                try:
+                    if stream is None:
+                        out[r] = fn(ThreadGroup(ring, r, dev))
+                        return
+                    # the runtime's current device is per host thread
+                    torch.cuda.set_device(dev)
+                    stream.wait_event(ready[dev])
+                    with torch.cuda.stream(stream):
+                        out[r] = fn(ThreadGroup(ring, r, dev))
+                except BaseException as e:  # raised again by the caller
+                    errors[r] = e
+                    ring.abort()
+
+            threads = [
+                threading.Thread(target=rank, args=(r,),
+                                 name=f"ahocorasick-rank-{r}")
+                for r in range(self.size)
+            ]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            for d, s in zip(self.devices, self._streams):
+                if s is not None:
+                    torch.cuda.current_stream(d).wait_stream(s)
+        failed = [e for e in errors if e is not None]
+        if failed:
+            raise next(
+                (e for e in failed
+                 if not isinstance(e, threading.BrokenBarrierError)),
+                failed[0],
+            )
+        return out
+
+
+MeshLike = Union["DeviceMesh", dist.ProcessGroup, ShardGroup, LocalMesh, None]
+
+
+def _process_group() -> Optional[ShardGroup]:
+    """Every rank of the default process group, if one is initialized."""
     if dist.is_available() and dist.is_initialized():
         return ShardGroup(dist.group.WORLD)
-    return ShardGroup(None)
+    return None
 
 
-def as_group(mesh: MeshLike) -> ShardGroup:
-    """A 1-D ``DeviceMesh``, a ``ProcessGroup`` or ``None`` (the default
-    group, see :func:`make_mesh`) as a :class:`ShardGroup`."""
+def make_mesh(
+    num_devices: Optional[int] = None,
+    *,
+    devices: Optional[Sequence[Union[str, torch.device]]] = None,
+) -> Union[ShardGroup, LocalMesh]:
+    """The ranks of a sharded scan, as the JAX package's ``make_mesh``.
+
+    ``devices`` names the devices of a :class:`LocalMesh`, one thread rank
+    each, repeats allowed (``["cpu"] * 4`` on the CPU, ``["cuda:0"] * 2``
+    for two ranks sharing a card).  Otherwise: every rank of the default
+    process group when ``torch.distributed`` is initialized (then
+    ``num_devices`` must be None or its size), else a :class:`LocalMesh`
+    over the first ``num_devices`` CUDA devices, all of them by default.
+    Without a card that raises: there is no silent CPU mesh.
+    """
+    if devices is not None:
+        return LocalMesh(devices)
+    group = _process_group()
+    if group is not None:
+        if num_devices not in (None, group.size):
+            raise ValueError(
+                f"num_devices={num_devices}, but the process group has "
+                f"{group.size} ranks"
+            )
+        return group
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; name the devices of a local mesh, e.g. "
+            "make_mesh(devices=['cpu'] * 4)"
+        )
+    count = torch.cuda.device_count()
+    n = count if num_devices is None else num_devices
+    if not 1 <= n <= count:
+        raise ValueError(f"num_devices={n}, but {count} CUDA devices")
+    return LocalMesh([torch.device("cuda", i) for i in range(n)])
+
+
+def as_group(mesh: MeshLike) -> Union[ShardGroup, LocalMesh]:
+    """A 1-D ``DeviceMesh``, a ``ProcessGroup``, a :class:`LocalMesh` or
+    ``None`` (the default process group, or a world of one rank when none
+    is initialized) as the ranks of a sharded scan."""
     if mesh is None:
-        return make_mesh()
-    if isinstance(mesh, ShardGroup):
+        return _process_group() or ShardGroup(None)
+    if isinstance(mesh, (ShardGroup, LocalMesh)):
         return mesh
     if isinstance(mesh, dist.ProcessGroup):
         return ShardGroup(mesh)
@@ -110,9 +329,25 @@ def as_group(mesh: MeshLike) -> ShardGroup:
             )
         return ShardGroup(mesh.get_group())
     raise TypeError(
-        "mesh must be a torch.distributed DeviceMesh or ProcessGroup, not "
-        f"{type(mesh).__name__}"
+        "mesh must be a torch.distributed DeviceMesh or ProcessGroup, or a "
+        f"LocalMesh, not {type(mesh).__name__}"
     )
+
+
+_S = TypeVar("_S")
+
+
+def _on_ranks(
+    mesh: LocalMesh, state: _S, fn: Callable[[_S, ThreadGroup], _R]
+) -> tuple[_R, _S]:
+    """``fn(state on the rank's device, group)`` on every thread rank of
+    ``mesh``: rank 0's result and rank 0's ``state``.  ``state`` (tables or
+    a scanner) is copied to each distinct device here, on the calling
+    thread, before any rank starts, so no rank builds what another reads;
+    ranks that share a device share its copy."""
+    copies = {d: state.on(d) for d in mesh.devices}
+    out = mesh.run(lambda g: fn(copies[g.device], g))
+    return out[0], copies[mesh.devices[0]]
 
 
 def _shard_of(hay: np.ndarray, rank: int, LT: int) -> np.ndarray:
@@ -127,7 +362,7 @@ def _count_body(t: torch.Tensor) -> None:
     """Count one K8 dispatch: a per-rank body that has just launched its
     kernels on a card (each kernel is also counted under its own name)."""
     if t.device.type == "cuda":
-        _kernels.LAUNCHES["shard_body"] += 1
+        _kernels.count_launch("shard_body")
 
 
 # -- dense scan ---------------------------------------------------------
@@ -193,17 +428,31 @@ def scan_sharded(
     mesh: MeshLike = None,
     *,
     lanes_per_device: int = 512,
+    cap: Optional[int] = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Scan ``hay`` sharded across the ranks; returns global ascending
     ``(positions, states)`` as int64, the same on every rank.
 
-    Every rank must call it with the same haystack and equal tables.
+    Every rank must call it with the same haystack, equal tables and the
+    same ``cap``, the compaction capacity to start from (by default the
+    tables' sticky ``last_cap``).  On a :class:`LocalMesh` it is one call
+    that runs every rank.
     """
     n = len(hay)
     if n == 0:
         z = np.zeros(0, dtype=np.int64)
         return z, z
     g = as_group(mesh)
+    if cap is None:
+        # one read for every rank of a local mesh: ranks that share these
+        # tables write them at their end
+        cap = tables.last_cap
+    if isinstance(g, LocalMesh):
+        out, t0 = _on_ranks(g, tables, lambda t, rg: scan_sharded(
+            am, hay, t, rg, lanes_per_device=lanes_per_device, cap=cap
+        ))
+        tables.last_cap = t0.last_cap
+        return out
     n_dev, rank = g.size, g.rank
     halo = am.max_len - 1
     L, T = dense_layout(n, n_dev, halo, lanes_per_device)
@@ -219,8 +468,6 @@ def scan_sharded(
                 tails[rank - 1] if rank
                 else torch.full_like(tails[0], PAD_BYTE)
             )
-    # sticky compaction capacity shared with the single-device path
-    cap = tables.last_cap
     while True:
         with torch.profiler.record_function("ahocorasick:shard_scan"):
             outs = shard_scan_body(
@@ -307,14 +554,18 @@ def scan_sharded_teddy(
     scanner: "TeddyScanner",
     hay: np.ndarray,
     mesh: MeshLike = None,
+    *,
+    caps: Optional[tuple[int, int]] = None,
 ) -> Optional[tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Prefiltered scan sharded across the ranks.
 
     Returns the complete (pids, starts, ends) occurrence set in canonical
     order, identical to ``TeddyScanner.occurrences``, or None when the
     observed fire rate says the dense sharded scan should take over (then
-    ``scanner.worthwhile`` is False).  ``scanner``'s sticky capacities are
-    shared with the single-device path.
+    ``scanner.worthwhile`` is False).  ``caps``, the same on every rank, are
+    the fire and match capacities to start from, by default ``scanner``'s
+    sticky ones, which it shares with the single-device path.  On a
+    :class:`LocalMesh` it is one call that runs every rank.
     """
     from ..ops import scan_teddy as _teddy
 
@@ -323,6 +574,16 @@ def scan_sharded_teddy(
         z = np.zeros(0, dtype=np.int64)
         return z.astype(np.int32), z, z
     g = as_group(mesh)
+    if caps is None:
+        # one read for every rank, as in scan_sharded
+        caps = scanner.fire_cap, scanner.match_cap
+    if isinstance(g, LocalMesh):
+        occ, s0 = _on_ranks(g, scanner, lambda sc, rg: scan_sharded_teddy(
+            am, sc, hay, rg, caps=caps
+        ))
+        scanner.fire_cap, scanner.match_cap = s0.fire_cap, s0.match_cap
+        scanner.worthwhile = s0.worthwhile
+        return occ
     n_dev, rank = g.size, g.rank
     W = am.max_len + _teddy.COARSE - 1
     rows, Hr = teddy_layout(n, n_dev, W)
@@ -335,7 +596,7 @@ def scan_sharded_teddy(
             heads[rank + 1] if rank + 1 < n_dev
             else torch.zeros_like(heads[0])
         )
-    cap, cap2 = scanner.fire_cap, scanner.match_cap
+    cap, cap2 = caps
     too_many = max(1 << 16, n // 2)
     while True:
         with torch.profiler.record_function("ahocorasick:shard_teddy"):
@@ -435,18 +696,30 @@ def scan_sharded_batch(
     docs: list[np.ndarray],
     tables: DeviceTables,
     mesh: MeshLike = None,
+    *,
+    cap: Optional[int] = None,
 ) -> tuple[np.ndarray, np.ndarray, int]:
     """Batched many-document scan with the rows sharded across the ranks.
 
     The sharded counterpart of ``scan_cuda.scan_device_batch``, with the
     same contract: flat ascending ``(positions, states, T)``, document
     ``i`` at ``[i*T, i*T + len)``.  Padding rows have length 0 and never
-    match.
+    match.  ``cap`` and a :class:`LocalMesh` as in :func:`scan_sharded`.
     """
     B = len(docs)
     if B == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64), 1
     g = as_group(mesh)
+    if cap is None:
+        # one read for every rank of a local mesh: ranks that share these
+        # tables write them at their end
+        cap = tables.last_cap
+    if isinstance(g, LocalMesh):
+        out, t0 = _on_ranks(g, tables, lambda t, rg: scan_sharded_batch(
+            am, docs, t, rg, cap=cap
+        ))
+        tables.last_cap = t0.last_cap
+        return out
     n_dev, rank = g.size, g.rank
     Bb, T = batch_layout([len(d) for d in docs], n_dev)
     Bl = Bb // n_dev
@@ -458,7 +731,6 @@ def scan_sharded_batch(
             lens[r] = len(d)
         hay2d = to_device(buf, tables.device)
         lens_dev = torch.from_numpy(lens).to(tables.device)
-    cap = tables.last_cap
     while True:
         with torch.profiler.record_function("ahocorasick:shard_batch"):
             outs = shard_batch_body(

@@ -37,7 +37,12 @@ tier; and ``save_matcher``/``load_matcher`` of the tuned matcher, whose
 bodies are held against the same bodies on the CPU, then two gloo ranks
 sharing the card and one NCCL rank (child processes of this script) make
 the sharded Teddy, dense and batch calls through the public API with
-``mesh=``, and every rank's tuples must equal the single-device port's.
+``mesh=``, and every rank's tuples must equal the single-device port's;
+then this process makes the same calls on thread ranks, with
+``backend="sharded"`` and no mesh (every local card) and on local meshes
+of 2 and 4 ranks sharing ``cuda:0`` (``make_mesh(devices=...)``), each
+equal to the single-device port and launching K8's body once a rank a
+call.
 Then the bench phase runs the benchmark tool
 (``ahocorasick_rs_tpu_torch.tools.bench``) in this process at
 ``--scale`` :data:`BENCH_SCALE` over :data:`BENCH_SECTIONS`: its one JSON
@@ -1536,6 +1541,36 @@ SHARD_KERNELS = {
     "teddy_sharded_batch": TEDDY_KERNELS,
     "sharded_batch": ("batch_scan", "compact"),
 }
+#: thread ranks of the local-mesh phase's meshes on ``cuda:0``; it also
+#: runs each call with no mesh (``make_mesh()``: every local card)
+LOCAL_MESH_RANKS = (2, 4)
+#: timed calls of each local-mesh path after its warm-up call
+LOCAL_MESH_CALLS = 2
+
+
+def shard_runs(text: str, long_batch: list) -> dict:
+    """The calls of :data:`SHARD_CALLS` by name, each on a matcher."""
+    return {
+        "text": lambda ac: ac.find_matches_as_indexes(text),
+        "text_overlap": lambda ac: ac.find_matches_as_indexes(
+            text, overlapping=True),
+        "batch": lambda ac: flat_batch(
+            ac.find_matches_as_indexes_batch(long_batch)),
+    }
+
+
+def shard_matcher(port, names_s: list, kw: dict, teddy_state, **extra):
+    """A matcher of :data:`SHARD_CALLS`' keywords with ``backend="sharded"``
+    (and ``extra``: ``mesh=``, ``device=``)."""
+    kw = dict(kw)
+    if "matchkind" in kw:
+        kw["matchkind"] = port.MatchKind[kw["matchkind"]]
+    if "implementation" in kw:
+        kw["implementation"] = port.Implementation[kw["implementation"]]
+    ac = port.AhoCorasick(names_s, backend="sharded", **kw, **extra)
+    if teddy_state is not None:
+        ac._teddy_state = teddy_state
+    return ac
 
 
 def shard_child(argv: list[str]) -> int:
@@ -1579,30 +1614,14 @@ def shard_child(argv: list[str]) -> int:
         names = synth_names(PATTERNS, rng)
         text = synth_corpus(CORPUS_MIB << 20, names, rng).tobytes().decode()
         names_s = [x.decode() for x in names]
-        long_batch = long_docs(names)
-        runs = {
-            "text": lambda ac: ac.find_matches_as_indexes(text),
-            "text_overlap": lambda ac: ac.find_matches_as_indexes(
-                text, overlapping=True),
-            "batch": lambda ac: flat_batch(
-                ac.find_matches_as_indexes_batch(long_batch)),
-        }
+        runs = shard_runs(text, long_docs(names))
         record: dict = {"rank": dist.get_rank(), "world": a.world,
                         "backend": dist.get_backend(), "mesh":
                         type(mesh).__name__, "calls": {}}
         for tier, kw, teddy_state, run in SHARD_CALLS:
-            kw = dict(kw)
-            if "matchkind" in kw:
-                kw["matchkind"] = port.MatchKind[kw["matchkind"]]
-            if "implementation" in kw:
-                kw["implementation"] = port.Implementation[
-                    kw["implementation"]]
             _kernels.reset_launches()
-            ac = port.AhoCorasick(
-                names_s, backend="sharded", mesh=mesh, device=dev, **kw
-            )
-            if teddy_state is not None:
-                ac._teddy_state = teddy_state
+            ac = shard_matcher(port, names_s, kw, teddy_state, mesh=mesh,
+                               device=dev)
             times = []
             for _ in range(3):
                 dist.barrier()
@@ -1670,6 +1689,68 @@ def phase_sharded(want: dict[str, str]) -> dict:
                 "device_call_s": [t for c in calls for t in c["call_s"]],
                 "ranks": world, "backend": records[0]["backend"],
                 "mesh": records[0]["mesh"],
+            }
+    return paths
+
+
+def phase_local_mesh(port, names_s, text, long_batch,
+                     want: dict[str, str]) -> dict:
+    """The sharded paths in this process, one thread rank a device: each
+    of :data:`SHARD_CALLS` through the public API with no mesh
+    (``make_mesh()``: every local card), then with ``mesh=make_mesh(
+    devices=["cuda:0"] * k)`` for each k of :data:`LOCAL_MESH_RANKS`.  A
+    warm-up call (tables, prefilter, capacities), then
+    :data:`LOCAL_MESH_CALLS` timed calls with the counts set to 0 before
+    them: every call's tuples equal the single-device port's (``want``),
+    and the timed calls launch the call's kernels and k K8 bodies a
+    call."""
+    from ahocorasick_rs_tpu_torch import _kernels
+    from ahocorasick_rs_tpu_torch.parallel.sharded import LocalMesh, make_mesh
+
+    runs = shard_runs(text, long_batch)
+    paths = {}
+    for k in (None,) + LOCAL_MESH_RANKS:
+        mesh = None if k is None else make_mesh(devices=["cuda:0"] * k)
+        for tier, kw, teddy_state, run in SHARD_CALLS:
+            ac = shard_matcher(port, names_s, kw, teddy_state, mesh=mesh)
+            t0 = time.perf_counter()
+            got = runs[run](ac)
+            first_s = time.perf_counter() - t0
+            group = ac._shard_group()
+            require(isinstance(group, LocalMesh),
+                    f"{tier} with mesh {k} ran on {type(group).__name__}")
+            ranks = group.size
+            require(k is None or ranks == k, f"{tier}: {ranks} ranks")
+            digests = [digest(got)]
+            _kernels.reset_launches()
+            times = []
+            for _ in range(LOCAL_MESH_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = runs[run](ac)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                digests.append(digest(got))
+            launches = dict(_kernels.LAUNCHES)
+            key = f"{tier}_{'nomesh' if k is None else 'local'}{ranks}"
+            require(ac.stats()["last_backend"] == tier,
+                    f"{key} ran {ac.stats()['last_backend']!r}")
+            require(set(digests) == {want[tier]},
+                    f"{key} differs from the single-device port")
+            require(launches["shard_body"] == ranks * LOCAL_MESH_CALLS,
+                    f"{key} launched {launches['shard_body']} K8 bodies in "
+                    f"{LOCAL_MESH_CALLS} calls of {ranks} ranks")
+            for name in SHARD_KERNELS[tier]:
+                require(launches[name] > 0, f"{key} launched no {name}")
+            if tier == "sharded":
+                require(launches["stride2_scan"] == 0, f"{key} ran K6")
+            if tier.startswith("teddy"):
+                require_groups_with_fire(launches, key)
+            paths[key] = {
+                "launches": launches, "matches": len(got), "ranks": ranks,
+                "device_call_s": times, "first_call_s": first_s,
+                "mesh": "make_mesh()" if k is None else
+                f"make_mesh(devices=['cuda:0'] * {k})",
             }
     return paths
 
@@ -2031,12 +2112,13 @@ def main() -> int:
             short_batch, None, "device_batch", "batch_scan"),
     }
     t = time.perf_counter()
-    sharded = phase_sharded({
+    want = {
         "teddy_sharded": teddy["digest"],
         "sharded": digest(dense_want),
         "teddy_sharded_batch": paths["batch_long_dense"]["Standard"]["digest"],
         "sharded_batch": paths["batch_long_dense"]["Standard"]["digest"],
-    })
+    }
+    sharded = phase_sharded(want)
     for key, res in sharded.items():
         log(f"{key}: {res['ranks']} {res['backend']} rank(s) on cuda:0 "
             f"({res['mesh']}), {res['matches']} matches, calls "
@@ -2045,6 +2127,17 @@ def main() -> int:
     log(f"sharded phase: every rank equal to the single-device port "
         f"({time.perf_counter() - t:.1f} s)")
     paths.update(sharded)
+    t = time.perf_counter()
+    local = phase_local_mesh(port, names_s, text, long_batch, want)
+    for key, res in local.items():
+        log(f"{key}: {res['ranks']} thread rank(s), {res['mesh']}, "
+            f"{res['matches']} matches, first call "
+            f"{res['first_call_s'] * 1e3:.1f} ms, calls "
+            f"{[round(x * 1e3, 1) for x in res['device_call_s']]} ms, "
+            f"launches {res['launches']}")
+    log(f"local-mesh phase: every path equal to the single-device port "
+        f"({time.perf_counter() - t:.1f} s)")
+    paths.update(local)
     bench = paths["bench"] = path("bench tool", phase_bench, port)
     d = bench["line"]["detail"]
     log("  bench GB/s: " + ", ".join(

@@ -12,8 +12,10 @@ DFA engine; the dense path: ContiguousNFA, Standard, overlapping, Teddy
 off, which runs the stride-2 scan; the sparse engine, Standard,
 overlapping, with ``backend="device"``; the LONG batch through the Teddy
 pipeline and through the batch kernel; the SHORT batch; and the same Teddy,
-dense and LONG batch calls with ``backend="sharded"`` in a world of one
-rank, with no process group; and the Teddy scanner's streamed pipeline,
+dense and LONG batch calls with ``backend="sharded"`` and no mesh (every
+local card, one thread rank each), then on local meshes of 2 and 4 thread
+ranks sharing ``cuda:0`` (``make_mesh(devices=["cuda:0"] * k)``, rows
+``<tier>_local<k>``); and the Teddy scanner's streamed pipeline,
 16 MiB segments staged on its side copy stream, beside one whole-buffer
 pass), times three calls of each on the host clock, then traces one call
 of each with ``torch.profiler``.  For each path it prints one JSON line:
@@ -32,6 +34,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -78,14 +81,19 @@ def device_busy_us(events) -> tuple[float, dict]:
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
         by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
-    busy = 0.0
+    return union_us(spans), by_name
+
+
+def union_us(spans: list) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total = 0.0
     end = float("-inf")
     for a, b in sorted(spans):
         if b <= end:
             continue
-        busy += b - max(a, end)
+        total += b - max(a, end)
         end = b
-    return busy, by_name
+    return total
 
 
 def copy_beside_kernels_us(events) -> tuple[float, float]:
@@ -112,6 +120,55 @@ def copy_beside_kernels_us(events) -> tuple[float, float]:
     return sum(b - a for a, b in copies), beside
 
 
+class HostSpans:
+    """Every ``ahocorasick:*`` span of the calls inside it on the host
+    clock, from every thread.  ``torch.profiler`` records
+    ``record_function`` ranges only on the thread that started it, and
+    the ranks of a local mesh are threads of their own; this wraps
+    ``torch.profiler.record_function`` (which the port looks up at each
+    call) to time each range as well."""
+
+    def __init__(self) -> None:
+        self.intervals: dict = {}
+        self._lock = threading.Lock()
+        self._orig = torch.profiler.record_function
+
+    def __enter__(self) -> "HostSpans":
+        spans, orig = self, self._orig
+
+        class Timed:
+            def __init__(self, name: str, *args) -> None:
+                self.name, self.inner = name, orig(name, *args)
+
+            def __enter__(self):
+                self.t0 = time.perf_counter()
+                return self.inner.__enter__()
+
+            def __exit__(self, *exc):
+                out = self.inner.__exit__(*exc)
+                with spans._lock:
+                    spans.intervals.setdefault(self.name, []).append(
+                        (self.t0 * 1e6, time.perf_counter() * 1e6))
+                return out
+
+        torch.profiler.record_function = Timed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        torch.profiler.record_function = self._orig
+
+    def summary(self) -> dict:
+        """Per span: ms summed over its ranges, and ms of host wall time
+        they cover (below the sum where rank threads ran it at once)."""
+        return {
+            k.split(":", 1)[1]: {
+                "sum_ms": sum(b - a for a, b in v) / 1e3,
+                "wall_ms": union_us(v) / 1e3,
+            }
+            for k, v in self.intervals.items()
+        }
+
+
 def profile_path(label: str, call) -> dict:
     """Three timed calls, then one traced call of ``call``."""
     walls = []
@@ -124,7 +181,9 @@ def profile_path(label: str, call) -> dict:
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA,
     ]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities) as prof, (
+        HostSpans()
+    ) as host_spans:
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
@@ -156,6 +215,9 @@ def profile_path(label: str, call) -> dict:
         "wall_ms": walls,
         "traced_wall_ms": traced_ms,
         "span_ms": spans,
+        # every thread's spans on the host clock (span_ms has the calling
+        # thread's only)
+        "host_spans": host_spans.summary(),
         # the API layer around _find / _find_batch: str -> UTF-8 encode,
         # index mapping
         "outside_spans_ms": outside,
@@ -223,34 +285,47 @@ def main() -> int:
     batches["batch_long_dense"][0]._teddy_state = "off"
     for ac, docs, _ in batches.values():
         ac.find_matches_as_indexes_batch(docs)  # tables, build, caps
-    # the sharded calls in a world of one rank: K8's bodies and exchange
-    # layer with no collective
-    sharded = {
-        "teddy_sharded": port.AhoCorasick(
-            names_s, matchkind=port.MatchKind.LeftmostLongest,
-            implementation=port.Implementation.DFA, backend="sharded",
-        ),
-        "sharded": port.AhoCorasick(
-            names_s, implementation=port.Implementation.ContiguousNFA,
-            backend="sharded",
-        ),
-        "teddy_sharded_batch": port.AhoCorasick(names_s, backend="sharded"),
-        "sharded_batch": port.AhoCorasick(names_s, backend="sharded"),
-    }
-    sharded["sharded"]._teddy_state = "off"
-    sharded["sharded_batch"]._teddy_state = "off"
-    ts, sd = sharded["teddy_sharded"], sharded["sharded"]
-    tb, sb = sharded["teddy_sharded_batch"], sharded["sharded_batch"]
-    sharded_calls = {
-        "teddy_sharded": lambda: ts.find_matches_as_indexes(text),
-        "sharded": lambda: sd.find_matches_as_indexes(text, overlapping=True),
-        "teddy_sharded_batch": lambda: tb.find_matches_as_indexes_batch(
-            long_batch),
-        "sharded_batch": lambda: sb.find_matches_as_indexes_batch(long_batch),
-    }
-    for call in sharded_calls.values():
-        call()  # tables, build, caps
-    torch.cuda.synchronize()
+    from ahocorasick_rs_tpu_torch.parallel.sharded import make_mesh
+
+    def sharded_calls(k: int | None) -> dict:
+        """The four sharded calls with no mesh (every local card), or on
+        a local mesh of k thread ranks sharing cuda:0, each warmed up:
+        label -> (tier, matcher, call)."""
+        mesh = None if k is None else make_mesh(devices=["cuda:0"] * k)
+        suffix = "" if k is None else f"_local{k}"
+        ts, sd, tb, sb = (
+            port.AhoCorasick(
+                names_s, matchkind=port.MatchKind.LeftmostLongest,
+                implementation=port.Implementation.DFA, backend="sharded",
+                mesh=mesh,
+            ),
+            port.AhoCorasick(
+                names_s, implementation=port.Implementation.ContiguousNFA,
+                backend="sharded", mesh=mesh,
+            ),
+            port.AhoCorasick(names_s, backend="sharded", mesh=mesh),
+            port.AhoCorasick(names_s, backend="sharded", mesh=mesh),
+        )
+        sd._teddy_state = sb._teddy_state = "off"
+        out = {}
+        for tier, ac, call in (
+            ("teddy_sharded", ts,
+             lambda ac=ts: ac.find_matches_as_indexes(text)),
+            ("sharded", sd, lambda ac=sd: ac.find_matches_as_indexes(
+                text, overlapping=True)),
+            ("teddy_sharded_batch", tb,
+             lambda ac=tb: ac.find_matches_as_indexes_batch(long_batch)),
+            ("sharded_batch", sb,
+             lambda ac=sb: ac.find_matches_as_indexes_batch(long_batch)),
+        ):
+            call()  # tables, build, caps
+            out[tier + suffix] = (tier, ac, call)
+        torch.cuda.synchronize()
+        return out
+
+    # the local meshes' matchers are made after the other rows, so that
+    # those rows run in the process state of the parent's
+    sharded = sharded_calls(None)
     encode_ms = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -283,10 +358,14 @@ def main() -> int:
     rows.append(profile_path(
         "teddy_streamed",
         lambda: scanner.occurrences_streamed(corpus, seg_bytes=16 << 20)))
-    for tier, call in sharded_calls.items():
-        rows.append(profile_path(tier, call))
-        if sharded[tier].stats()["last_backend"] != tier:
-            raise SystemExit(f"the {tier} matcher did not run {tier}")
+    for k in (None, 2, 4):
+        for label, (tier, ac, call) in (
+            sharded if k is None else sharded_calls(k)
+        ).items():
+            rows.append(profile_path(label, call))
+            if ac.stats()["last_backend"] != tier:
+                raise SystemExit(f"the {label} matcher did not run {tier}")
+            rows[-1]["ranks"] = ac._shard_group().size
     if teddy.stats()["last_backend"] != "teddy":
         raise SystemExit("the Teddy matcher did not run the Teddy path")
     for ac in (dense, sparse):

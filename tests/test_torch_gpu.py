@@ -13,6 +13,7 @@ installed:
 from __future__ import annotations
 
 import random
+import threading
 
 import numpy as np
 import pytest
@@ -25,7 +26,7 @@ from ahocorasick_rs_tpu_torch.models.prefilter import (
     build_prefilter,
     build_prefilter_config,
 )
-from ahocorasick_rs_tpu_torch.ops import scan_cuda, scan_teddy
+from ahocorasick_rs_tpu_torch.ops import probe, scan_cuda, scan_teddy
 from ahocorasick_rs_tpu_torch.parallel import sharded
 
 pytestmark = pytest.mark.gpu
@@ -1131,8 +1132,9 @@ def test_shard_bodies_equal_cpu(cuda) -> None:
 
 
 def test_api_sharded_one_rank_on_card(cuda) -> None:
-    """backend="sharded" with no process group: a world of one rank on the
-    card, through K2 with a head, Teddy and the batch kernel."""
+    """backend="sharded" with no process group: ``make_mesh()``, a local
+    mesh of every card (one on a one-card host), through K2 with a head,
+    Teddy and the batch kernel."""
     names = [n.decode() for n in _names(91, 50)]
     hay = _corpus(92, 3 << 20, [n.encode() for n in names], 3000).decode()
     docs = [hay[i : i + 600] for i in range(0, 600 * 4000, 600)]
@@ -1146,6 +1148,9 @@ def test_api_sharded_one_rank_on_card(cuda) -> None:
             hay
         )
         assert ac.stats()["last_backend"] == tier
+        mesh = ac._shard_group()
+        assert isinstance(mesh, sharded.LocalMesh)
+        assert mesh.size == torch.cuda.device_count()
         assert ac.find_matches_as_indexes_batch(docs) == [
             host.find_matches_as_indexes(d) for d in docs
         ]
@@ -1383,3 +1388,214 @@ def test_teddy_calls_launch_fire_groups_with_fire(cuda) -> None:
     got = dict(_kernels.LAUNCHES)
     assert got["fire"] >= 4
     assert got["fire_groups"] == got["fire"] == got["compact"], got
+
+
+# -- the one-process local mesh: thread ranks sharing the card ----------
+
+#: the sharded calls of ``chip_smoke.py`` (``SHARD_CALLS``): tier, matcher
+#: keywords, Teddy state, and the call
+LOCAL_CALLS = (
+    ("teddy_sharded", {"matchkind": MatchKind.LeftmostLongest,
+                       "implementation": Implementation.DFA}, "auto",
+     lambda ac, hay, docs: ac.find_matches_as_indexes(hay)),
+    ("sharded", {"implementation": Implementation.ContiguousNFA}, "off",
+     lambda ac, hay, docs: ac.find_matches_as_indexes(hay, overlapping=True)),
+    ("teddy_sharded_batch", {}, "auto",
+     lambda ac, hay, docs: ac.find_matches_as_indexes_batch(docs)),
+    ("sharded_batch", {}, "off",
+     lambda ac, hay, docs: ac.find_matches_as_indexes_batch(docs)),
+)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_local_mesh_shard_calls_on_card(cuda, k: int) -> None:
+    """The four sharded calls on ``make_mesh(devices=["cuda:0"] * k)``, a
+    few MiB: tuples equal to the single-device port's; after a warm-up,
+    each call launches its kernels and one K8 body a rank."""
+    names = [n.decode() for n in _names(93, 300)]
+    hay = _corpus(94, 6 << 20, [n.encode() for n in names], 4000).decode()
+    docs = [hay[i : i + 620] for i in range(0, 620 * 5000, 620)]
+    mesh = sharded.make_mesh(devices=[cuda] * k)
+    kernels = {
+        "teddy_sharded": ("fire", "fire_groups", "compact", "verify"),
+        "sharded": ("lane_scan", "lane_scan_head", "compact"),
+        "teddy_sharded_batch": ("fire", "fire_groups", "compact", "verify"),
+        "sharded_batch": ("batch_scan", "compact"),
+    }
+    for tier, kw, teddy, call in LOCAL_CALLS:
+        one = AhoCorasick(names, backend="device", device=cuda, **kw)
+        one._teddy_state = teddy
+        want = call(one, hay, docs)
+        ac = AhoCorasick(names, backend="sharded", mesh=mesh, device=cuda,
+                         **kw)
+        ac._teddy_state = teddy
+        assert call(ac, hay, docs) == want, tier
+        _kernels.reset_launches()
+        for _ in range(2):
+            assert call(ac, hay, docs) == want, tier
+        assert ac.stats()["last_backend"] == tier
+        assert _kernels.LAUNCHES["shard_body"] == 2 * k, tier
+        for name in kernels[tier]:
+            assert _kernels.LAUNCHES[name] > 0, (tier, name)
+        if tier.startswith("teddy"):
+            assert _kernels.LAUNCHES["fire_groups"] == (
+                _kernels.LAUNCHES["fire"]
+            )
+
+
+def test_local_mesh_concurrent_calls_on_card(cuda) -> None:
+    """Two threads call one matcher with a local mesh of 2 ranks on the
+    card at once; each call equals the single-device answer."""
+    names = [n.decode() for n in _names(95, 200)]
+    texts = [
+        _corpus(96 + i, 3 << 20, [n.encode() for n in names], 2000).decode()
+        for i in range(2)
+    ]
+    one = AhoCorasick(names, backend="device", device=cuda)
+    wants = [one.find_matches_as_indexes(t) for t in texts]
+    mesh = sharded.make_mesh(devices=[cuda] * 2)
+    for teddy in ("auto", "off"):
+        ac = AhoCorasick(names, backend="sharded", mesh=mesh, device=cuda)
+        ac._teddy_state = teddy
+        got: list = [None, None]
+        errors: list = []
+
+        def run(i: int, ac=ac, got=got, errors=errors) -> None:
+            try:
+                got[i] = [ac.find_matches_as_indexes(texts[i])
+                          for _ in range(3)]
+            except Exception as e:  # raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        assert not errors, errors
+        for g, w in zip(got, wants):
+            assert g == [w, w, w] and w
+
+
+def _launcher_cases(cuda) -> dict:
+    """Each launcher's call and its plain version on the same card tensors,
+    with the comparison: ``name -> (kernel call, plain call, equal)``."""
+    names = _names(97, 40) + [b"abcdefghabcdefgh"]
+    am = build_automaton(names)
+    halo = am.max_len - 1
+    n = 70_000
+    arr = np.frombuffer(_corpus(98, n, names, 700), np.uint8)
+    tabs = scan_cuda.DeviceTables(am, "classed", cuda)
+    assert tabs.ensure_packed2()
+    sparse_tabs = scan_cuda.DeviceTables(am, "sparse", cuda)
+    L, T = scan_cuda.choose_layout(n, halo + (halo & 1))
+    buf = np.zeros(L * T, dtype=np.uint8)
+    buf[:n] = arr
+    hay = torch.from_numpy(buf).to(cuda)
+    lanes = (tabs.table, tabs.classes, hay, tabs.match_count, n, L, T, halo,
+             tabs.use_classes)
+    even = halo + (halo & 1)
+    pair = (tabs.packed2, tabs.table_classed, tabs.classes2, hay, n, L, T,
+            even)
+    sc = scan_teddy.TeddyScanner(am, build_prefilter(names), tabs)
+    hay2d = sc.stage(arr)
+    fmask = scan_teddy.fire_mask(sc.tables, hay2d, sc.m, sc.words, sc.passes,
+                                 packed=sc.packed).reshape(-1)
+    fire_pos = torch.arange(0, n, 64, dtype=torch.int32, device=cuda)
+    W = am.max_len + scan_teddy.COARSE - 1
+    walk = (sc.vtable, sc.classes, hay2d.reshape(-1), fire_pos, n, W,
+            sc.use_classes)
+    rows = torch.from_numpy(buf[: 64 * 1024].reshape(-1, 1024)).to(cuda)
+    lens = torch.full((64,), 1000, dtype=torch.int32, device=cuda)
+    batch = (tabs.table, tabs.classes, rows, lens, tabs.match_count,
+             tabs.use_classes)
+    rows128 = torch.from_numpy(
+        np.random.default_rng(99).integers(0, 256, (2048, 128), np.uint8)
+    ).to(cuda)
+
+    def same(a, b):
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert torch.equal(x.cpu(), y.cpu())
+
+    return {
+        "lane_scan": (
+            lambda: scan_cuda.scan_lanes(*lanes, flagged=tabs.lane_table()),
+            lambda: scan_cuda._lane_scan_plain(*lanes),
+            _assert_lane_scan_equal),
+        "compact": (lambda: scan_cuda.compact_sparse(fmask, 4096),
+                    lambda: scan_cuda._compact_plain(fmask, 4096), same),
+        "fire": (
+            lambda: scan_teddy.fire_mask(sc.tables, hay2d, sc.m, sc.words,
+                                         sc.passes, packed=sc.packed),
+            lambda: scan_teddy._fire_mask_plain(sc.tables, hay2d, sc.m,
+                                                sc.words, sc.passes), same),
+        "fire_groups": (lambda: scan_teddy.fire_groups(fmask, n),
+                        lambda: scan_teddy._fire_groups_plain(fmask, n),
+                        lambda a, b: same(a, b.to(torch.uint8))),
+        "verify": (lambda: scan_teddy.verify_walk(*walk),
+                   lambda: scan_teddy._verify_walk_plain(*walk), same),
+        "verify_body": (
+            lambda: scan_teddy._verify_body(*walk[:6], 1 << 14, walk[6]),
+            lambda: scan_teddy._verify_body(
+                *(x.cpu() if isinstance(x, torch.Tensor) else x
+                  for x in walk[:6]), 1 << 14, walk[6]),
+            same),
+        "stride2_scan": (lambda: scan_cuda.stride2_scan(*pair),
+                         lambda: scan_cuda._stride2_scan_plain(*pair),
+                         _assert_lane_scan_equal),
+        "sparse_scan": (
+            lambda: scan_cuda.sparse_scan(sparse_tabs.sparse, hay, n, L, T,
+                                          halo),
+            lambda: scan_cuda._sparse_scan_plain(sparse_tabs.sparse, hay, n,
+                                                 L, T, halo),
+            _assert_lane_scan_equal),
+        "batch_scan": (
+            lambda: scan_cuda.scan_batch(*batch, tabs.lane_table(),
+                                         tabs.halo),
+            lambda: scan_cuda._batch_scan_plain(*batch),
+            _assert_lane_scan_equal),
+        "probe_reduce": (lambda: probe.reduce16(rows128),
+                         lambda: probe._reduce16_plain(rows128), same),
+        "probe_rollrows": (lambda: probe.rollrows(rows128),
+                           lambda: probe._rollrows_plain(rows128), same),
+    }
+
+
+LAUNCHER_NAMES = ["batch_scan", "compact", "fire", "fire_groups",
+                  "lane_scan", "probe_reduce", "probe_rollrows",
+                  "sparse_scan", "stride2_scan", "verify", "verify_body"]
+
+
+@pytest.mark.parametrize("name", LAUNCHER_NAMES)
+def test_launcher_in_fresh_thread_on_side_stream(cuda, name: str) -> None:
+    """Each launcher called from a new thread (whose runtime current device
+    is the default) under a stream of its own, as a local mesh's rank
+    calls it: equal to its plain version on the same tensors."""
+    kernel, plain, equal = _launcher_cases(cuda)[name]
+    want = plain()
+    torch.cuda.synchronize()
+    counter = "verify" if name == "verify_body" else name
+    before = _kernels.LAUNCHES[counter]
+    out: dict = {}
+
+    def work() -> None:
+        side = torch.cuda.Stream(cuda)
+        try:
+            with torch.cuda.stream(side):
+                out["got"] = kernel()
+            side.synchronize()
+        except Exception as e:  # raised below
+            out["error"] = e
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    if "error" in out:
+        raise out["error"]
+    equal(out["got"], want)
+    assert _kernels.LAUNCHES[counter] > before

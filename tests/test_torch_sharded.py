@@ -7,7 +7,8 @@ conftest's virtual CPU mesh (its Teddy fire kernel in Pallas interpret
 mode).  The port runs its pure per-rank functions for the same ``n_dev``
 ranks in a loop, feeding each rank its neighbour's bytes by hand; and its
 scan functions (and the public API with ``mesh=``) in ``n_dev`` threads of this
-process, whose :class:`_ThreadGroup` stands in for a process group.  The
+process, whose ``ThreadGroup`` (the exchange of the package's local mesh)
+stands in for a process group.  The
 dense and batch bodies' raw outputs (positions, states, totals) are
 compared array for array; Teddy by occurrences, since the fire masks of
 shards are not the reference's across shard seams.  Inputs come from a
@@ -59,45 +60,20 @@ AXIS = "data"
 ENGINES = ["dfa", "classed"]
 
 
-class _Ring:
-    """Shared slots and a barrier: the 'network' of a thread group."""
-
-    def __init__(self, size: int) -> None:
-        self.slots: list = [None] * size
-        self.barrier = threading.Barrier(size, timeout=60)
-
-
-class _ThreadGroup(port_sharded.ShardGroup):
-    """Rank ``rank`` of ``ring``'s ranks, one thread each: ``all_gather``
-    as a process group does it."""
-
-    def __init__(self, ring: _Ring, rank: int) -> None:
-        self.group = None
-        self.ring = ring
-        self.rank = rank
-        self.size = len(ring.slots)
-
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        self.ring.slots[self.rank] = t.clone()
-        self.ring.barrier.wait()
-        out = torch.stack(self.ring.slots)
-        self.ring.barrier.wait()  # nobody writes again before all read
-        return out
-
-
 def _run_ranks(n_dev: int, fn) -> list:
     """``fn(group)`` on ``n_dev`` thread ranks; their results, or their
-    exceptions.  Ranks must fail alike: one that fails alone leaves the
-    others waiting until the barrier's timeout breaks it."""
-    ring = _Ring(n_dev)
+    exceptions.  A rank that fails aborts the ring, so the others fail at
+    their next exchange (``LocalMesh.run`` does the same, but raises)."""
+    ring = port_sharded.Ring(n_dev)
     out: list = [None] * n_dev
 
     def work(r: int) -> None:
         torch.set_num_threads(1)
         try:
-            out[r] = fn(_ThreadGroup(ring, r))
+            out[r] = fn(port_sharded.ThreadGroup(ring, r))
         except Exception as e:  # handed to the caller
             out[r] = e
+            ring.abort()
 
     threads = [threading.Thread(target=work, args=(r,)) for r in range(n_dev)]
     for t in threads:
@@ -637,14 +613,15 @@ def test_api_bytes_sharded_engines_and_fallback() -> None:
 
 
 def test_api_mesh_argument_checked() -> None:
-    """``mesh=`` takes a DeviceMesh or a ProcessGroup; anything else is a
-    TypeError at construction.  ``make_mesh`` without a process group is
-    a world of one rank."""
+    """``mesh=`` takes a DeviceMesh, a ProcessGroup or a local mesh;
+    anything else is a TypeError at construction.  Without a process
+    group ``as_group(None)`` is a world of one rank (``make_mesh()`` needs
+    a card or named devices: ``tests/test_torch_local_mesh.py``)."""
     with pytest.raises(TypeError, match="DeviceMesh or ProcessGroup"):
         port.AhoCorasick(["x"], mesh="data", device="cpu")
     with pytest.raises(TypeError, match="DeviceMesh or ProcessGroup"):
         port.BytesAhoCorasick([b"x"], mesh=[0, 1], device="cpu")
-    g = port_sharded.make_mesh()
+    g = port_sharded.as_group(None)
     assert (g.group, g.rank, g.size) == (None, 0, 1)
     ac = port.AhoCorasick(["x"], mesh=g, device="cpu")
     assert ac._mesh is g
