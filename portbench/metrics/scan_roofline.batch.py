@@ -1,0 +1,7 @@
+"""The kernels' share of the memory roofline over the batch window's work, percent."""
+
+from portbench.metrics import roofline_pct
+
+
+def read(w):
+    return roofline_pct(w, "batch")
