@@ -62,6 +62,7 @@ from .models.automaton import Automaton, build_automaton
 from .models.engine import Implementation, MatchKind, select_engine
 from .ops import resolve as _resolve
 from .ops import scan_host
+from .utils import trace
 from .utils.buffers import as_byte_view, pattern_bytes
 from .utils.codepoints import byte_to_codepoint_prefix
 
@@ -606,11 +607,13 @@ class _MatcherBase:
             and self._get_teddy() is not None
         ):
             T = T_teddy
-            buf = np.zeros(B * T, dtype=np.uint8)
-            lens = np.zeros(max(B, 1), dtype=np.int64)
-            for i, d in enumerate(docs):
-                buf[i * T : i * T + len(d)] = d
-                lens[i] = len(d)
+            with trace.span("pad"):
+                buf = np.zeros(B * T, dtype=np.uint8)
+                lens = np.zeros(max(B, 1), dtype=np.int64)
+                for i, d in enumerate(docs):
+                    buf[i * T : i * T + len(d)] = d
+                    lens[i] = len(d)
+            trace.count("pad_bytes", buf.nbytes + lens.nbytes)
             # the staged flat buffer IS a haystack: padding can only
             # over-fire, never match (matches are filtered below); with a
             # mesh it shards across the ranks like any other haystack
@@ -649,7 +652,10 @@ class _MatcherBase:
                 )
                 self._last_backend = "device_batch"
             self._check_batch_density(st)
-            pids, starts, ends = _resolve.expand_occurrences(am, pos, st)
+            with trace.span("expand"):
+                pids, starts, ends = _resolve.expand_occurrences(
+                    am, pos, st
+                )
         offsets = np.arange(B + 1, dtype=np.int64) * T
         return pids, starts, ends, offsets
 
@@ -693,7 +699,8 @@ class _MatcherBase:
             )
         self._last_backend = "native_batch"
         self._check_batch_density(st)
-        pids, starts, ends = _resolve.expand_occurrences(am, pos, st)
+        with trace.span("expand"):
+            pids, starts, ends = _resolve.expand_occurrences(am, pos, st)
         return pids, starts, ends, offsets
 
     def _find_batch(
@@ -777,13 +784,11 @@ class _MatcherBase:
                         excluded += time.perf_counter() - t_f
                         continue
                     sub = [docs[i] for i in idxs]
-                    with torch.profiler.record_function(
-                        "ahocorasick:scan_batch"
-                    ):
+                    with trace.span("scan_batch"):
                         pids, starts, ends, offsets = (
                             self._batch_occurrences(sub)
                         )
-                    with torch.profiler.record_function("ahocorasick:resolve"):
+                    with trace.span("resolve"):
                         res = _resolve.resolve_batch(
                             pids, starts, ends, offsets,
                             kind=kind, overlapping=overlapping,
@@ -799,14 +804,14 @@ class _MatcherBase:
                     counted, time.perf_counter() - t0 - excluded
                 )
                 return out_sk
-        with torch.profiler.record_function("ahocorasick:scan_batch"):
+        with trace.span("scan_batch"):
             if use_device:
                 pids, starts, ends, offsets = self._batch_occurrences(docs)
             else:
                 pids, starts, ends, offsets = (
                     self._native_batch_occurrences(docs)
                 )
-        with torch.profiler.record_function("ahocorasick:resolve"):
+        with trace.span("resolve"):
             out = _resolve.resolve_batch(
                 pids, starts, ends, offsets,
                 kind=kind, overlapping=overlapping,
@@ -998,7 +1003,7 @@ class _MatcherBase:
         if self._backend == "auto" and len(hay) >= DEVICE_TIER_MIN:
             self._probe_ctr += 1  # one router tick per scan
         t0 = time.perf_counter()
-        with torch.profiler.record_function("ahocorasick:scan"):
+        with trace.span("scan"):
             occ = self._try_teddy(hay)  # sets last_backend on success
             if occ is None:
                 stream = self._stream_backend(hay)
@@ -1056,11 +1061,12 @@ class _MatcherBase:
                         out = res.result()
                     self._note_scan(len(hay), time.perf_counter() - t0)
                     return out
-                occ = _resolve.expand_occurrences(
-                    self._automaton, positions, states
-                )
+                with trace.span("expand"):
+                    occ = _resolve.expand_occurrences(
+                        self._automaton, positions, states
+                    )
         pids, starts, ends = occ
-        with torch.profiler.record_function("ahocorasick:resolve"):
+        with trace.span("resolve"):
             out = _resolve.resolve(
                 pids,
                 starts,
@@ -1169,6 +1175,50 @@ class _MatcherBase:
         return s
 
 
+def _encode(haystack: str) -> tuple[bytes, np.ndarray]:
+    """A ``str`` haystack's UTF-8 bytes and their uint8 view, counted as
+    scanned and encoded bytes (the ``encode`` span)."""
+    if not isinstance(haystack, str):
+        # PyO3's argument-extraction TypeError for `haystack: &str`
+        # (upstream src/lib.rs:230,254)
+        raise TypeError(
+            f"argument 'haystack': '{type(haystack).__name__}' object "
+            "cannot be converted to 'PyString'"
+        )
+    with trace.span("encode"):
+        data = haystack.encode("utf-8")
+        hay = np.frombuffer(data, dtype=np.uint8)
+    trace.count("scanned_bytes", len(data))
+    trace.count("encode_bytes", len(data))
+    return data, hay
+
+
+def _encode_batch(
+    haystacks: Iterable[str],
+) -> tuple[list[bytes], list[np.ndarray], list[bool]]:
+    """:func:`_encode` over a batch, one span and one count for all:
+    each document's bytes, their views, and whether it is pure ASCII."""
+    datas = []
+    ascii_doc = []
+    with trace.span("encode"):
+        for h in haystacks:
+            if not isinstance(h, str):
+                raise TypeError(
+                    f"argument 'haystack': '{type(h).__name__}' object "
+                    "cannot be converted to 'PyString'"
+                )
+            d = h.encode("utf-8")
+            datas.append(d)
+            # byte length == str length iff pure ASCII — no second decode
+            # of matched documents later
+            ascii_doc.append(len(d) == len(h))
+        hays = [np.frombuffer(d, dtype=np.uint8) for d in datas]
+    total = sum(len(d) for d in datas)
+    trace.count("scanned_bytes", total)
+    trace.count("encode_bytes", total)
+    return datas, hays, ascii_doc
+
+
 class AhoCorasick(_MatcherBase):
     """Multi-pattern string matcher over ``str`` haystacks.
 
@@ -1225,15 +1275,7 @@ class AhoCorasick(_MatcherBase):
         self, haystack: str, overlapping: bool = False
     ) -> list[tuple[int, int, int]]:
         """All matches as ``(pattern_index, start, end)`` code-point tuples."""
-        if not isinstance(haystack, str):
-            # PyO3's argument-extraction TypeError for `haystack: &str`
-            # (upstream src/lib.rs:230,254)
-            raise TypeError(
-                f"argument 'haystack': '{type(haystack).__name__}' object "
-                "cannot be converted to 'PyString'"
-            )
-        data = haystack.encode("utf-8")
-        hay = np.frombuffer(data, dtype=np.uint8)
+        data, hay = _encode(haystack)
         matches = self._find(hay, overlapping)
         if not matches:
             return []
@@ -1252,20 +1294,7 @@ class AhoCorasick(_MatcherBase):
         workload, 10k-100k documents of ~70-600 chars.  Output is exactly
         ``[find_matches_as_indexes(h, overlapping) for h in haystacks]``.
         """
-        datas = []
-        ascii_doc = []
-        for h in haystacks:
-            if not isinstance(h, str):
-                raise TypeError(
-                    f"argument 'haystack': '{type(h).__name__}' object "
-                    "cannot be converted to 'PyString'"
-                )
-            d = h.encode("utf-8")
-            datas.append(d)
-            # byte length == str length iff pure ASCII — no second decode
-            # of matched documents later
-            ascii_doc.append(len(d) == len(h))
-        hays = [np.frombuffer(d, dtype=np.uint8) for d in datas]
+        _, hays, ascii_doc = _encode_batch(haystacks)
         batches = self._find_batch(hays, overlapping)
         out = []
         for is_ascii, hay, matches in zip(ascii_doc, hays, batches):
@@ -1286,13 +1315,7 @@ class AhoCorasick(_MatcherBase):
         (both arms produce equal values — reference upstream
         src/lib.rs:263-271).
         """
-        if not isinstance(haystack, str):
-            raise TypeError(
-                f"argument 'haystack': '{type(haystack).__name__}' object "
-                "cannot be converted to 'PyString'"
-            )
-        data = haystack.encode("utf-8")
-        hay = np.frombuffer(data, dtype=np.uint8)
+        data, hay = _encode(haystack)
         matches = self._find(hay, overlapping)
         if self._patterns is not None:
             return [self._patterns[p] for (p, _, _) in matches]
@@ -1302,15 +1325,7 @@ class AhoCorasick(_MatcherBase):
         self, haystacks: Iterable[str], overlapping: bool = False
     ) -> list[list[str]]:
         """Batched :meth:`find_matches_as_strings` (device extra)."""
-        datas = []
-        for h in haystacks:
-            if not isinstance(h, str):
-                raise TypeError(
-                    f"argument 'haystack': '{type(h).__name__}' object "
-                    "cannot be converted to 'PyString'"
-                )
-            datas.append(h.encode("utf-8"))
-        hays = [np.frombuffer(d, dtype=np.uint8) for d in datas]
+        datas, hays, _ = _encode_batch(haystacks)
         batches = self._find_batch(hays, overlapping)
         if self._patterns is not None:
             return [
@@ -1357,6 +1372,7 @@ class BytesAhoCorasick(_MatcherBase):
     ) -> list[tuple[int, int, int]]:
         """All matches as ``(pattern_index, start, end)`` byte tuples."""
         hay = as_byte_view(haystack)
+        trace.count("scanned_bytes", len(hay))
         return self._find(hay, overlapping)
 
     def find_matches_as_indexes_batch(
@@ -1368,4 +1384,5 @@ class BytesAhoCorasick(_MatcherBase):
         the per-haystack loop exactly.
         """
         hays = [as_byte_view(h) for h in haystacks]
+        trace.count("scanned_bytes", sum(len(h) for h in hays))
         return self._find_batch(hays, overlapping)

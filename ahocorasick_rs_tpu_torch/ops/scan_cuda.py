@@ -35,6 +35,7 @@ import torch
 
 from .. import _kernels
 from ..models.automaton import Automaton, PAD_BYTE
+from ..utils import trace
 from .resolve import MatchDenseError
 
 #: target time-axis length; lanes are derived from it.
@@ -59,6 +60,9 @@ def to_device(
 ):
     """Copy a host uint8 array to ``device`` (through pinned memory on CUDA).
 
+    The pinned buffer's fill (on the CPU device, the copy) is the ``pin``
+    span, and its bytes count as ``pin_bytes`` and ``h2d_bytes``.
+
     The copy is issued ``non_blocking`` from a pinned buffer, so the host
     can stage the next segment while the device still works; the caching
     host allocator keeps the pinned block alive until the copy is done.
@@ -69,10 +73,14 @@ def to_device(
     wait on the event, and the tensor must be ``record_stream``-ed to it
     (:meth:`.scan_teddy.TeddyScanner.occurrences_streamed`).
     """
+    trace.count("pin_bytes", buf.nbytes)
+    trace.count("h2d_bytes", buf.nbytes)
     if device.type != "cuda":
-        return torch.from_numpy(np.array(buf, dtype=np.uint8, copy=True))
-    pinned = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
-    pinned.numpy()[...] = buf
+        with trace.span("pin"):
+            return torch.from_numpy(np.array(buf, dtype=np.uint8, copy=True))
+    with trace.span("pin"):
+        pinned = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+        pinned.numpy()[...] = buf
     if stream is None:
         return pinned.to(device, non_blocking=True)
     with torch.cuda.stream(stream):
@@ -309,7 +317,7 @@ def _fetch(
     pos: torch.Tensor, st: torch.Tensor, total: torch.Tensor, cap: int
 ) -> tuple[np.ndarray, np.ndarray, int]:
     """One host fetch for all outputs (waits for the device)."""
-    with torch.profiler.record_function("ahocorasick:fetch"):
+    with trace.span("fetch"):
         out = torch.cat([pos, st, total]).cpu().numpy()
     return out[:cap], out[cap : 2 * cap], int(out[-1])
 
@@ -331,17 +339,20 @@ def scan_device_batch(
     Tmax = max((len(d) for d in docs), default=1)
     T = _bucket(max(Tmax, 16), lo=16)
     Bb = _bucket(max(B, MIN_LANES), lo=MIN_LANES)
-    with torch.profiler.record_function("ahocorasick:stage"):
-        buf = np.zeros((Bb, T), dtype=np.uint8)
-        lens = np.zeros(Bb, dtype=np.int32)
-        for i, d in enumerate(docs):
-            buf[i, : len(d)] = d
-            lens[i] = len(d)
+    with trace.span("stage"):
+        with trace.span("pad"):
+            buf = np.zeros((Bb, T), dtype=np.uint8)
+            lens = np.zeros(Bb, dtype=np.int32)
+            for i, d in enumerate(docs):
+                buf[i, : len(d)] = d
+                lens[i] = len(d)
+        trace.count("pad_bytes", buf.nbytes + lens.nbytes)
         hay2d = to_device(buf, tables.device)
         lens_dev = torch.from_numpy(lens).to(tables.device)
+        trace.count("h2d_bytes", lens.nbytes)
     cap = tables.last_cap
     while True:
-        with torch.profiler.record_function("ahocorasick:batch_scan"):
+        with trace.span("batch_scan"):
             outs = _scan_batch_compact(
                 tables.table,
                 tables.classes,
@@ -680,9 +691,11 @@ def scan_device(
         drop = seg_start - ctx_start  # leading context positions to discard
         m = seg_end - ctx_start
         L, T = choose_layout(m, halo)
-        with torch.profiler.record_function("ahocorasick:stage"):
-            buf = np.zeros(L * T, dtype=np.uint8)
-            buf[:m] = hay[ctx_start:seg_end]
+        with trace.span("stage"):
+            with trace.span("pad"):
+                buf = np.zeros(L * T, dtype=np.uint8)
+                buf[:m] = hay[ctx_start:seg_end]
+            trace.count("pad_bytes", buf.nbytes)
             hay_dev = to_device(buf, tables.device)
         # the engine's kernel (K7 sparse, K6 stride-2, else K2), with every
         # argument but the compaction capacity bound
@@ -703,7 +716,7 @@ def scan_device(
             )
         cap = tables.last_cap
         while True:
-            with torch.profiler.record_function(f"ahocorasick:{span}"):
+            with trace.span(span):
                 outs = scan(cap=cap)
             pos, st, total = _fetch(*outs, cap)
             if total <= cap:

@@ -35,6 +35,7 @@ from .. import _kernels
 from .._kernels import pack_fire_tables
 from ..models.automaton import Automaton, PAD_BYTE
 from ..models.prefilter import Prefilter
+from ..utils import trace
 from .scan_cuda import DeviceTables, compact_sparse, to_device
 
 #: staged rows per block of the layout (``stage`` pads the row count to a
@@ -365,9 +366,11 @@ class TeddyScanner:
         rows = -(-max(n, 1) // 128)
         R = min(BLOCK_ROWS, _bucket(rows, lo=8))
         rows_p = max(R, _bucket(rows, lo=8))  # power-of-two block count
-        with torch.profiler.record_function("ahocorasick:stage"):
-            buf = np.zeros(rows_p * 128, dtype=np.uint8)
-            buf[:n] = hay
+        with trace.span("stage"):
+            with trace.span("pad"):
+                buf = np.zeros(rows_p * 128, dtype=np.uint8)
+                buf[:n] = hay
+            trace.count("pad_bytes", buf.nbytes)
             return to_device(buf.reshape(rows_p, 128), self.device, stream)
 
     def _stage_segment(
@@ -466,7 +469,7 @@ class TeddyScanner:
         cap, cap2 = self.fire_cap, self.match_cap
         too_many = max(1 << 16, n // 2)  # groups×W beyond this: dense wins
         while True:
-            with torch.profiler.record_function("ahocorasick:fire_verify"):
+            with trace.span("fire_verify"):
                 outs = _fire_verify(
                     self.tables,
                     self.vtable,
@@ -483,7 +486,7 @@ class TeddyScanner:
                     self.packed,
                 )
             # ONE device-to-host copy for every output (waits for the device)
-            with torch.profiler.record_function("ahocorasick:fetch"):
+            with trace.span("fetch"):
                 flat = torch.cat(
                     [o.reshape(-1).to(torch.int64) for o in outs]
                 ).cpu().numpy()
@@ -512,7 +515,7 @@ class TeddyScanner:
         win = win[:mtotal]
         step = step[:mtotal]
         st = st[:mtotal]
-        with torch.profiler.record_function("ahocorasick:expand"):
+        with trace.span("expand"):
             pids, starts, ends = expand_verified(am, fire_np[win], step, st)
             order = np.lexsort((pids, starts, ends))
         return pids[order], starts[order], ends[order]

@@ -59,6 +59,7 @@ from ..ops.scan_cuda import (
     scan_batch,
     to_device,
 )
+from ..utils import trace
 
 if TYPE_CHECKING:
     from torch.distributed.device_mesh import DeviceMesh
@@ -352,9 +353,11 @@ def _on_ranks(
 
 def _shard_of(hay: np.ndarray, rank: int, LT: int) -> np.ndarray:
     """Rank ``rank``'s ``LT`` bytes of the zero-padded haystack layout."""
-    buf = np.zeros(LT, dtype=np.uint8)
-    part = hay[rank * LT : (rank + 1) * LT]
-    buf[: len(part)] = part
+    with trace.span("pad"):
+        buf = np.zeros(LT, dtype=np.uint8)
+        part = hay[rank * LT : (rank + 1) * LT]
+        buf[: len(part)] = part
+    trace.count("pad_bytes", buf.nbytes)
     return buf
 
 
@@ -416,7 +419,7 @@ def _gathered(
 ) -> np.ndarray:
     """Every rank's outputs as one host array ``[size, sum of lengths]``
     (one collective, one device-to-host copy)."""
-    with torch.profiler.record_function("ahocorasick:gather"):
+    with trace.span("gather"):
         flat = torch.cat([p.reshape(-1).to(torch.int64) for p in parts])
         return g.all_gather(flat).cpu().numpy()
 
@@ -458,18 +461,18 @@ def scan_sharded(
     L, T = dense_layout(n, n_dev, halo, lanes_per_device)
     LT = L * T
     n_local = n - rank * LT
-    with torch.profiler.record_function("ahocorasick:stage"):
+    with trace.span("stage"):
         shard = to_device(_shard_of(hay, rank, LT), tables.device)
     head = None
     if halo:
-        with torch.profiler.record_function("ahocorasick:exchange"):
+        with trace.span("exchange"):
             tails = g.all_gather(shard_tail(shard, n_local, halo))
             head = (
                 tails[rank - 1] if rank
                 else torch.full_like(tails[0], PAD_BYTE)
             )
     while True:
-        with torch.profiler.record_function("ahocorasick:shard_scan"):
+        with trace.span("shard_scan"):
             outs = shard_scan_body(
                 tables, shard, head, n_local, rank * LT, L, T, halo, cap
             )
@@ -588,9 +591,9 @@ def scan_sharded_teddy(
     W = am.max_len + _teddy.COARSE - 1
     rows, Hr = teddy_layout(n, n_dev, W)
     LT = rows * 128
-    with torch.profiler.record_function("ahocorasick:stage"):
+    with trace.span("stage"):
         shard = to_device(_shard_of(hay, rank, LT), scanner.device)
-    with torch.profiler.record_function("ahocorasick:exchange"):
+    with trace.span("exchange"):
         heads = g.all_gather(shard[:Hr])
         right = (
             heads[rank + 1] if rank + 1 < n_dev
@@ -599,7 +602,7 @@ def scan_sharded_teddy(
     cap, cap2 = caps
     too_many = max(1 << 16, n // 2)
     while True:
-        with torch.profiler.record_function("ahocorasick:shard_teddy"):
+        with trace.span("shard_teddy"):
             outs = shard_teddy_body(
                 scanner, shard, right, n - rank * LT, rank * LT, W, cap,
                 cap2,
@@ -636,7 +639,7 @@ def scan_sharded_teddy(
     all_p: list[np.ndarray] = []
     all_s: list[np.ndarray] = []
     all_e: list[np.ndarray] = []
-    with torch.profiler.record_function("ahocorasick:expand"):
+    with trace.span("expand"):
         for d in range(n_dev):
             mt = int(mtot[d])
             if not mt:
@@ -723,16 +726,19 @@ def scan_sharded_batch(
     n_dev, rank = g.size, g.rank
     Bb, T = batch_layout([len(d) for d in docs], n_dev)
     Bl = Bb // n_dev
-    with torch.profiler.record_function("ahocorasick:stage"):
-        buf = np.zeros((Bl, T), dtype=np.uint8)
-        lens = np.zeros(Bl, dtype=np.int32)
-        for r, d in enumerate(docs[rank * Bl : (rank + 1) * Bl]):
-            buf[r, : len(d)] = d
-            lens[r] = len(d)
+    with trace.span("stage"):
+        with trace.span("pad"):
+            buf = np.zeros((Bl, T), dtype=np.uint8)
+            lens = np.zeros(Bl, dtype=np.int32)
+            for r, d in enumerate(docs[rank * Bl : (rank + 1) * Bl]):
+                buf[r, : len(d)] = d
+                lens[r] = len(d)
+        trace.count("pad_bytes", buf.nbytes + lens.nbytes)
         hay2d = to_device(buf, tables.device)
         lens_dev = torch.from_numpy(lens).to(tables.device)
+        trace.count("h2d_bytes", lens.nbytes)
     while True:
-        with torch.profiler.record_function("ahocorasick:shard_batch"):
+        with trace.span("shard_batch"):
             outs = shard_batch_body(
                 tables, hay2d, lens_dev, rank * Bl * T, cap
             )

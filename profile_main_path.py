@@ -24,8 +24,10 @@ the device time of each kernel and copy and of each kernel family (the
 port's kernels K1-K9, copies, PyTorch's own kernels), the union of device
 activity,
 the device's idle share of the traced call, and the host-to-device copy
-time with the part of it that ran while a kernel ran.  The Chrome traces go to
-``chiprun_out/``.  Without a CUDA card it exits non-zero.
+time with the part of it that ran while a kernel ran.  The span recorder,
+the kernel families and the interval arithmetic are the benchmark's
+(``portbench/trace.py``).  The Chrome traces go to ``chiprun_out/``.
+Without a CUDA card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -34,38 +36,14 @@ import json
 import os
 import subprocess
 import sys
-import threading
 import time
 
 import numpy as np
 import torch
 
+from portbench.trace import SpanRecorder, kernel_family, length, union
+
 HERE = os.path.dirname(os.path.abspath(__file__))
-#: the port's CUDA kernels by a part of their names (``csrc/*.cu``); any
-#: other kernel is PyTorch's own (``at::`` in its name: reductions such
-#: as ``amax``, elementwise ops, concatenations) and counts as "torch"
-KERNEL_FAMILIES = {
-    "fire_kernel": "K1 fire",
-    "lane_scan_kernel": "K2 lane_scan",
-    "compact_kernel": "K3 compact",
-    "verify_kernel": "K4 verify",
-    "batch_scan_kernel": "K5 batch_scan",
-    "stride2_scan_kernel": "K6 stride2_scan",
-    "sparse_scan_kernel": "K7 sparse_scan",
-    "groups_kernel": "K9 fire_groups",
-}
-
-
-def kernel_family(name: str) -> str:
-    """The family of a device event's name: a port kernel's, "copies"
-    (memcpy, memset) or "torch"."""
-    if name.startswith(("Memcpy", "Memset")):
-        return "copies"
-    if "at::" not in name:
-        for part, family in KERNEL_FAMILIES.items():
-            if part in name:
-                return family
-    return "torch"
 
 
 def device_busy_us(events) -> tuple[float, dict]:
@@ -81,19 +59,7 @@ def device_busy_us(events) -> tuple[float, dict]:
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
         by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
-    return union_us(spans), by_name
-
-
-def union_us(spans: list) -> float:
-    """Length of the union of ``(start, end)`` intervals."""
-    total = 0.0
-    end = float("-inf")
-    for a, b in sorted(spans):
-        if b <= end:
-            continue
-        total += b - max(a, end)
-        end = b
-    return total
+    return length(union(spans)), by_name
 
 
 def copy_beside_kernels_us(events) -> tuple[float, float]:
@@ -109,64 +75,23 @@ def copy_beside_kernels_us(events) -> tuple[float, float]:
             copies.append(span)
         elif not e.name.startswith(("Memcpy", "Memset")):
             kernels.append(span)
-    merged: list = []
-    for a, b in sorted(kernels):
-        if merged and a <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], b)
-        else:
-            merged.append([a, b])
     beside = sum(max(0.0, min(b, kb) - max(a, ka))
-                 for a, b in copies for ka, kb in merged)
+                 for a, b in copies for ka, kb in union(kernels))
     return sum(b - a for a, b in copies), beside
 
 
-class HostSpans:
-    """Every ``ahocorasick:*`` span of the calls inside it on the host
-    clock, from every thread.  ``torch.profiler`` records
-    ``record_function`` ranges only on the thread that started it, and
-    the ranks of a local mesh are threads of their own; this wraps
-    ``torch.profiler.record_function`` (which the port looks up at each
-    call) to time each range as well."""
-
-    def __init__(self) -> None:
-        self.intervals: dict = {}
-        self._lock = threading.Lock()
-        self._orig = torch.profiler.record_function
-
-    def __enter__(self) -> "HostSpans":
-        spans, orig = self, self._orig
-
-        class Timed:
-            def __init__(self, name: str, *args) -> None:
-                self.name, self.inner = name, orig(name, *args)
-
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-                return self.inner.__enter__()
-
-            def __exit__(self, *exc):
-                out = self.inner.__exit__(*exc)
-                with spans._lock:
-                    spans.intervals.setdefault(self.name, []).append(
-                        (self.t0 * 1e6, time.perf_counter() * 1e6))
-                return out
-
-        torch.profiler.record_function = Timed
-        return self
-
-    def __exit__(self, *exc) -> None:
-        torch.profiler.record_function = self._orig
-
-    def summary(self) -> dict:
-        """Per span: ms summed over its ranges, and ms of host wall time
-        they cover (below the sum where rank threads ran it at once)."""
-        return {
-            k.split(":", 1)[1]: {
-                "sum_ms": sum(b - a for a, b in v) / 1e3,
-                "wall_ms": union_us(v) / 1e3,
-            }
-            for k, v in self.intervals.items()
-        }
+def host_span_summary(recorder: SpanRecorder) -> dict:
+    """Per span, from every thread: ms summed over its ranges, and ms of
+    host wall time they cover (below the sum where rank threads ran it at
+    once)."""
+    by_name: dict = {}
+    for name, _tid, a, b in recorder.ranges:
+        by_name.setdefault(name, []).append((a, b))
+    return {
+        k: {"sum_ms": sum(b - a for a, b in v) * 1e3,
+            "wall_ms": length(union(v)) * 1e3}
+        for k, v in by_name.items()
+    }
 
 
 def profile_path(label: str, call) -> dict:
@@ -181,8 +106,10 @@ def profile_path(label: str, call) -> dict:
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA,
     ]
+    # torch.profiler records the calling thread's ranges only; the
+    # recorder times every thread's, the ranks of a local mesh included
     with torch.profiler.profile(activities=activities) as prof, (
-        HostSpans()
+        SpanRecorder()
     ) as host_spans:
         t0 = time.perf_counter()
         call()
@@ -217,7 +144,7 @@ def profile_path(label: str, call) -> dict:
         "span_ms": spans,
         # every thread's spans on the host clock (span_ms has the calling
         # thread's only)
-        "host_spans": host_spans.summary(),
+        "host_spans": host_span_summary(host_spans),
         # the API layer around _find / _find_batch: str -> UTF-8 encode,
         # index mapping
         "outside_spans_ms": outside,
