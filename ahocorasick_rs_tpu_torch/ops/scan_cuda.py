@@ -27,6 +27,8 @@ tensors it launches the kernel.
 
 from __future__ import annotations
 
+import ctypes
+import math
 from functools import partial
 from typing import Optional
 
@@ -81,6 +83,15 @@ def to_device(
     with trace.span("pin"):
         pinned = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
         pinned.numpy()[...] = buf
+    return _copy_to(pinned, device, stream)
+
+
+def _copy_to(
+    pinned: torch.Tensor, device: torch.device,
+    stream: Optional[torch.cuda.Stream],
+):
+    """The ``non_blocking`` copy of a pinned host tensor to ``device``: the
+    tensor, or with a side ``stream`` ``(tensor, ready event)``."""
     if stream is None:
         return pinned.to(device, non_blocking=True)
     with torch.cuda.stream(stream):
@@ -88,6 +99,54 @@ def to_device(
         ready = torch.cuda.Event()
         ready.record(stream)
     return out, ready
+
+
+def _read_view(hay: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over a contiguous uint8 array's bytes, for reading
+    only.  A read-only array (the view of a ``bytes`` haystack) is first
+    viewed writable through its address, since ``torch.from_numpy`` warns
+    on read-only arrays; nothing writes through the view."""
+    if not hay.flags.writeable:
+        raw = (ctypes.c_uint8 * len(hay)).from_address(hay.ctypes.data)
+        hay = np.frombuffer(raw, dtype=np.uint8)
+    return torch.from_numpy(hay)
+
+
+def stage_padded(
+    hay: np.ndarray, shape: tuple[int, ...], device: torch.device,
+    stream: Optional[torch.cuda.Stream] = None,
+):
+    """Stage ``hay`` at the head of a zero-padded uint8 layout of ``shape``
+    on ``device``, in one host pass.
+
+    On CUDA the layout's block comes straight from PyTorch's caching host
+    allocator (pinned, and already mapped after the first call of its
+    size).  The haystack's ``n`` bytes are copied into its head by
+    ``Tensor.copy_``, over the intra-op threads (the ``pin`` span,
+    ``pin_bytes``), and only the tail ``[n, total)`` is zeroed (the
+    ``pad`` span, opened even when the tail is empty; ``pad_bytes``).
+    The whole layout is copied to the device (``h2d_bytes``) as
+    :func:`to_device` copies it, with the same ``stream`` contract; the
+    allocator hands the block out again only after that copy's event.
+    On the CPU device the same layout is built in an ordinary tensor,
+    counted the same way.
+    """
+    hay = np.ascontiguousarray(hay, dtype=np.uint8)
+    n, total = len(hay), math.prod(shape)
+    if n > total:
+        raise ValueError(f"{n} haystack bytes exceed a {total}-byte layout")
+    trace.count("pin_bytes", n)
+    trace.count("pad_bytes", total - n)
+    trace.count("h2d_bytes", total)
+    cuda = device.type == "cuda"
+    with trace.span("pin"):
+        block = torch.empty(total, dtype=torch.uint8, pin_memory=cuda)
+        if n:
+            block[:n].copy_(_read_view(hay))
+    with trace.span("pad"):
+        block[n:].zero_()
+    block = block.view(shape)
+    return _copy_to(block, device, stream) if cuda else block
 
 
 def build_lanes(
@@ -692,11 +751,9 @@ def scan_device(
         m = seg_end - ctx_start
         L, T = choose_layout(m, halo)
         with trace.span("stage"):
-            with trace.span("pad"):
-                buf = np.zeros(L * T, dtype=np.uint8)
-                buf[:m] = hay[ctx_start:seg_end]
-            trace.count("pad_bytes", buf.nbytes)
-            hay_dev = to_device(buf, tables.device)
+            hay_dev = stage_padded(
+                hay[ctx_start:seg_end], (L * T,), tables.device
+            )
         # the engine's kernel (K7 sparse, K6 stride-2, else K2), with every
         # argument but the compaction capacity bound
         if tables.engine == "sparse":

@@ -36,7 +36,7 @@ from .._kernels import pack_fire_tables
 from ..models.automaton import Automaton, PAD_BYTE
 from ..models.prefilter import Prefilter
 from ..utils import trace
-from .scan_cuda import DeviceTables, compact_sparse, to_device
+from .scan_cuda import DeviceTables, compact_sparse, stage_padded
 
 #: staged rows per block of the layout (``stage`` pads the row count to a
 #: power of two of at least this many rows once the haystack reaches it)
@@ -356,22 +356,18 @@ class TeddyScanner:
     ):
         """Pad + reshape + transfer a haystack to the device layout.
 
-        On CUDA the copy leaves a pinned host buffer ``non_blocking`` on
-        the current stream, and the staged tensor is returned.  With a side
-        ``stream`` the copy goes there and ``(tensor, ready event)`` is
-        returned (``scan_cuda.to_device``), so that segment ``k+1``'s copy
-        runs beside segment ``k``'s kernels (``occurrences_streamed``).
+        On CUDA the haystack is written once into a pinned block, whose
+        tail alone is zeroed, and copied ``non_blocking`` on the current
+        stream; the staged tensor is returned.  With a side ``stream`` the
+        copy goes there and ``(tensor, ready event)`` is returned
+        (``scan_cuda.stage_padded``), so that segment ``k+1``'s copy runs
+        beside segment ``k``'s kernels (``occurrences_streamed``).
         """
-        n = len(hay)
-        rows = -(-max(n, 1) // 128)
+        rows = -(-max(len(hay), 1) // 128)
         R = min(BLOCK_ROWS, _bucket(rows, lo=8))
         rows_p = max(R, _bucket(rows, lo=8))  # power-of-two block count
         with trace.span("stage"):
-            with trace.span("pad"):
-                buf = np.zeros(rows_p * 128, dtype=np.uint8)
-                buf[:n] = hay
-            trace.count("pad_bytes", buf.nbytes)
-            return to_device(buf.reshape(rows_p, 128), self.device, stream)
+            return stage_padded(hay, (rows_p, 128), self.device, stream)
 
     def _stage_segment(
         self, hay: np.ndarray

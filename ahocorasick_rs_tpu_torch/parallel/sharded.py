@@ -57,6 +57,7 @@ from ..ops.scan_cuda import (
     _scan_compact,
     compact_sparse,
     scan_batch,
+    stage_padded,
     to_device,
 )
 from ..utils import trace
@@ -351,14 +352,12 @@ def _on_ranks(
     return out[0], copies[mesh.devices[0]]
 
 
-def _shard_of(hay: np.ndarray, rank: int, LT: int) -> np.ndarray:
-    """Rank ``rank``'s ``LT`` bytes of the zero-padded haystack layout."""
-    with trace.span("pad"):
-        buf = np.zeros(LT, dtype=np.uint8)
-        part = hay[rank * LT : (rank + 1) * LT]
-        buf[: len(part)] = part
-    trace.count("pad_bytes", buf.nbytes)
-    return buf
+def _shard_of(
+    hay: np.ndarray, rank: int, LT: int, device: torch.device
+) -> torch.Tensor:
+    """Rank ``rank``'s ``LT`` bytes of the zero-padded haystack layout,
+    staged on ``device`` (``scan_cuda.stage_padded``)."""
+    return stage_padded(hay[rank * LT : (rank + 1) * LT], (LT,), device)
 
 
 def _count_body(t: torch.Tensor) -> None:
@@ -462,7 +461,7 @@ def scan_sharded(
     LT = L * T
     n_local = n - rank * LT
     with trace.span("stage"):
-        shard = to_device(_shard_of(hay, rank, LT), tables.device)
+        shard = _shard_of(hay, rank, LT, tables.device)
     head = None
     if halo:
         with trace.span("exchange"):
@@ -592,7 +591,7 @@ def scan_sharded_teddy(
     rows, Hr = teddy_layout(n, n_dev, W)
     LT = rows * 128
     with trace.span("stage"):
-        shard = to_device(_shard_of(hay, rank, LT), scanner.device)
+        shard = _shard_of(hay, rank, LT, scanner.device)
     with trace.span("exchange"):
         heads = g.all_gather(shard[:Hr])
         right = (

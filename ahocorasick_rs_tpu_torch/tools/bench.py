@@ -179,9 +179,7 @@ def bench_north_star(run: Run, detail: dict) -> None:
     halo = am.max_len - 1
     halo += halo & 1  # stride-2 needs an even halo; harmless for stride-1
     L, T = scan_cuda.choose_layout(n, halo)
-    buf = np.zeros(L * T, dtype=np.uint8)
-    buf[:n] = hay
-    hay_dev = scan_cuda.to_device(buf, run.dev)
+    hay_dev = scan_cuda.stage_padded(hay, (L * T,), run.dev)
     cap = 1 << 16
     flagged = tables.lane_table()
 

@@ -19,9 +19,11 @@ site, never a document:
 
 * ``scanned_bytes``: haystack bytes of every public call;
 * ``encode_bytes``: UTF-8 bytes the ``str`` API's encode produced;
-* ``pad_bytes``: every host array a ``pad`` span allocates and fills;
-* ``pin_bytes``: every pinned buffer ``scan_cuda.to_device`` fills (on
-  the CPU device, the copy that stands in for it);
+* ``pad_bytes``: every host array a ``pad`` span allocates and fills (a
+  batch layout), and every tail ``scan_cuda.stage_padded`` zeroes;
+* ``pin_bytes``: every pinned buffer ``scan_cuda.to_device`` fills, and
+  every haystack ``scan_cuda.stage_padded`` copies into its pinned block
+  (on the CPU device, the copies that stand in for them);
 * ``h2d_bytes``: every host-to-device copy staging issues.
 """
 

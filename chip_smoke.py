@@ -1060,7 +1060,7 @@ def phase_shard_kernels(dev, names, corpus, long_batch) -> dict:
     cls = {d: scan_cuda.DeviceTables(am, "classed", d) for d in devs}
     L, T = sharded.dense_layout(n, n_dev, halo)
     LT = L * T
-    shards = [torch.from_numpy(sharded._shard_of(corpus, d, LT))
+    shards = [sharded._shard_of(corpus, d, LT, torch.device("cpu"))
               for d in range(n_dev)]
     tail = sharded.shard_tail(shards[0], n, halo)
     cap = 4096
@@ -1090,7 +1090,7 @@ def phase_shard_kernels(dev, names, corpus, long_batch) -> dict:
     W = am.max_len + scan_teddy.COARSE - 1
     rows, Hr = sharded.teddy_layout(n, n_dev, W)
     LT = rows * 128
-    shards = [torch.from_numpy(sharded._shard_of(corpus, d, LT))
+    shards = [sharded._shard_of(corpus, d, LT, torch.device("cpu"))
               for d in range(n_dev)]
     right = shards[1][:Hr].clone()
     fcap, mcap = 1 << 14, 1 << 12

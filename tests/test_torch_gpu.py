@@ -1071,7 +1071,7 @@ def test_shard_bodies_equal_cpu(cuda) -> None:
     # dense: each rank's head is its left neighbour's tail
     L, T = sharded.dense_layout(n, n_dev, halo, lanes_per_device=64)
     LT = L * T
-    shards = [torch.from_numpy(sharded._shard_of(hay, d, LT))
+    shards = [sharded._shard_of(hay, d, LT, torch.device("cpu"))
               for d in range(n_dev)]
     for d in range(n_dev):
         head = (sharded.shard_tail(shards[d - 1], n - (d - 1) * LT, halo)
@@ -1092,7 +1092,7 @@ def test_shard_bodies_equal_cpu(cuda) -> None:
     W = am.max_len + scan_teddy.COARSE - 1
     rows, Hr = sharded.teddy_layout(n, n_dev, W)
     LT = rows * 128
-    shards = [torch.from_numpy(sharded._shard_of(hay, d, LT))
+    shards = [sharded._shard_of(hay, d, LT, torch.device("cpu"))
               for d in range(n_dev)]
     for d in range(n_dev):
         right = (shards[d + 1][:Hr] if d + 1 < n_dev
@@ -1237,6 +1237,76 @@ def test_streamed_equals_whole_buffer_five_times(cuda) -> None:
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
     assert sc._copy_stream is not None
+
+
+def _dirty_pinned_blocks(cuda, totals, copies: int = 2) -> None:
+    """Stage ``copies`` layouts of 0xFF bytes at each of ``totals`` at once,
+    then free them: the caching host allocator keeps those pinned blocks,
+    every byte 0xFF, for the next layouts of those sizes."""
+    held = [scan_cuda.stage_padded(np.full(t, 0xFF, np.uint8), (t,), cuda)
+            for t in totals for _ in range(copies)]
+    torch.cuda.synchronize(cuda)
+    assert all(int(h.min()) == 0xFF for h in held)
+
+
+def test_stage_padded_zeroes_the_tail_of_a_reused_block(
+    cuda, monkeypatch
+) -> None:
+    """A shorter haystack staged after a layout of 0xFF bytes takes the same
+    cached pinned block back, and the device tensor's tail reads zero."""
+    shape, total, n = (1024, 128), 1024 * 128, 1000
+    blocks: list[int] = []
+    empty = torch.empty
+
+    def spy(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        if kwargs.get("pin_memory"):
+            blocks.append(t.data_ptr())
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy)
+    _dirty_pinned_blocks(cuda, [total], copies=1)
+    hay = np.random.default_rng(5).integers(1, 256, n, dtype=np.uint8)
+    got = scan_cuda.stage_padded(hay, shape, cuda)
+    torch.cuda.synchronize(cuda)
+    assert len(blocks) == 2 and blocks[0] == blocks[1]
+    want = np.zeros(total, np.uint8)
+    want[:n] = hay
+    assert got.shape == shape and got.device == cuda
+    np.testing.assert_array_equal(got.cpu().numpy().ravel(), want)
+
+
+def test_stage_padded_on_a_side_stream_returns_its_event(cuda) -> None:
+    hay = np.random.default_rng(6).integers(1, 256, 3000, dtype=np.uint8)
+    stream = torch.cuda.Stream(cuda)
+    got, ready = scan_cuda.stage_padded(hay, (32, 128), cuda, stream)
+    assert isinstance(ready, torch.cuda.Event)
+    torch.cuda.current_stream(cuda).wait_event(ready)
+    want = np.zeros(32 * 128, np.uint8)
+    want[:3000] = hay
+    np.testing.assert_array_equal(got.cpu().numpy().ravel(), want)
+
+
+def test_streamed_on_dirty_pinned_blocks_equals_whole_buffer(cuda) -> None:
+    """Four streamed segments, the last one short, each staged into a
+    cached pinned block left full of 0xFF: the tuples equal one
+    whole-buffer pass."""
+    names = _names(121, 200)
+    am = build_automaton(names)
+    seg = 2 << 20
+    hay = np.frombuffer(_corpus(122, 3 * seg + 12_345, names, 8_000),
+                        np.uint8)
+    tabs = scan_cuda.DeviceTables(am, "dfa", cuda)
+    sc = scan_teddy.TeddyScanner(am, build_prefilter(names), tabs)
+    want = sc.occurrences(hay)
+    assert want is not None and len(want[0]) > 4_000
+    W = am.max_len + scan_teddy.COARSE - 1
+    totals = {sc.stage(np.zeros(m, np.uint8)).numel()
+              for m in (seg + W, 12_345)}
+    _dirty_pinned_blocks(cuda, sorted(totals))
+    got = sc.occurrences_streamed(hay, seg_bytes=seg)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_tune_and_load_on_card(cuda, tmp_path) -> None:

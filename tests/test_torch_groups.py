@@ -221,7 +221,7 @@ def test_shard_teddy_body_calls_fire_groups_once(spy) -> None:
     W = sc.am.max_len + COARSE - 1
     rows, Hr = port_sharded.teddy_layout(len(hay), 2, W)
     LT = rows * 128
-    shard = torch.from_numpy(port_sharded._shard_of(hay, 1, LT))
+    shard = port_sharded._shard_of(hay, 1, LT, torch.device("cpu"))
     right = torch.zeros(Hr, dtype=torch.uint8)
     outs = port_sharded.shard_teddy_body(
         sc, shard, right, len(hay) - LT, LT, W, 1 << 14, 1 << 12

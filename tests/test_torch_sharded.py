@@ -166,7 +166,7 @@ def test_dense_bodies_equal_reference(names: str, n_dev: int, engine: str):
     ))
     pt = port_scan.DeviceTables(am, engine, "cpu")
     shards = [
-        torch.from_numpy(port_sharded._shard_of(hay, d, LT))
+        port_sharded._shard_of(hay, d, LT, torch.device("cpu"))
         for d in range(n_dev)
     ]
     assert n < n_dev * LT
@@ -261,7 +261,7 @@ def test_teddy_bodies_equal_reference(n_dev: int) -> None:
     )
     sc = _port_scanner(am, pf, "dfa")
     shards = [
-        torch.from_numpy(port_sharded._shard_of(hay, d, LT))
+        port_sharded._shard_of(hay, d, LT, torch.device("cpu"))
         for d in range(n_dev)
     ]
     got = []

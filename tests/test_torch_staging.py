@@ -1,0 +1,140 @@
+"""Single-document staging (``scan_cuda.stage_padded``) on the CPU: the
+staged layout equals the zero-padded numpy layout byte for byte, each
+byte is counted once (``pin_bytes`` the haystack, ``pad_bytes`` the
+tail, ``h2d_bytes`` the layout), and the Teddy, dense and shard sites
+stage through it.  The card's pinned blocks are held in
+``tests/test_torch_gpu.py``."""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from ahocorasick_rs_tpu_torch.models.automaton import build_automaton
+from ahocorasick_rs_tpu_torch.models.prefilter import build_prefilter
+from ahocorasick_rs_tpu_torch.ops import scan_cuda, scan_teddy
+from ahocorasick_rs_tpu_torch.parallel import sharded
+from ahocorasick_rs_tpu_torch.utils import trace
+
+CPU = torch.device("cpu")
+#: a length whose layout (the floor of 8 rows of 128) is over half tail
+OVER_HALF = 300
+#: haystack lengths: empty, around one 128-byte row, past 64 KiB, and
+#: one past 1,024 rows, whose layout of 2,048 rows is just under half tail
+SIZES = [0, 1, 127, 128, 129, OVER_HALF, (64 << 10) + 3, 128 * 1024 + 1]
+
+
+def _hay(n: int) -> np.ndarray:
+    """``n`` bytes none of which is zero, so a tail left unzeroed shows."""
+    return np.random.default_rng(n).integers(1, 256, n, dtype=np.uint8)
+
+
+def _padded(hay: np.ndarray, total: int) -> np.ndarray:
+    want = np.zeros(total, dtype=np.uint8)
+    want[: len(hay)] = hay
+    return want
+
+
+def _teddy_rows(n: int) -> int:
+    rows = -(-max(n, 1) // 128)
+    R = min(scan_teddy.BLOCK_ROWS, scan_teddy._bucket(rows, lo=8))
+    return max(R, scan_teddy._bucket(rows, lo=8))
+
+
+def _scanner() -> scan_teddy.TeddyScanner:
+    names = [b"hello", b"world", b"boundary"]
+    am = build_automaton(names)
+    return scan_teddy.TeddyScanner(
+        am, build_prefilter(names), scan_cuda.DeviceTables(am, "dfa", CPU)
+    )
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_staged_layout_is_the_zero_padded_layout(n: int) -> None:
+    hay = _hay(n)
+    rows_p = _teddy_rows(n)
+    got = scan_cuda.stage_padded(hay, (rows_p, 128), CPU)
+    assert got.shape == (rows_p, 128) and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy().ravel(),
+                                  _padded(hay, rows_p * 128))
+    if n == OVER_HALF:
+        assert rows_p * 128 - n > rows_p * 64
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_teddy_stage_counts_each_byte_once(n: int) -> None:
+    hay = _hay(n)
+    total = _teddy_rows(n) * 128
+    trace.reset_counters()
+    got = _scanner().stage(hay)
+    np.testing.assert_array_equal(got.numpy().ravel(), _padded(hay, total))
+    assert trace.counters() == {
+        "pin_bytes": n, "pad_bytes": total - n, "h2d_bytes": total,
+    }
+
+
+def test_a_read_only_haystack_stages_without_a_warning() -> None:
+    """A ``bytes`` haystack's view, as the API passes it, at an offset."""
+    data = _hay(5000).tobytes()
+    hay = np.frombuffer(data, dtype=np.uint8)[7:4007]
+    assert not hay.flags.writeable
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = scan_cuda.stage_padded(hay, (4096,), CPU)
+    np.testing.assert_array_equal(got.numpy(), _padded(hay, 4096))
+    assert data == _hay(5000).tobytes()  # nothing wrote through the view
+
+
+def test_stage_segment_on_the_cpu_has_no_event() -> None:
+    hay = _hay(1000)
+    sc = _scanner()
+    got, ready = sc._stage_segment(hay)
+    assert ready is None and sc._copy_stream is None
+    np.testing.assert_array_equal(got.numpy().ravel(),
+                                  _padded(hay, _teddy_rows(1000) * 128))
+
+
+def test_a_haystack_longer_than_its_layout_is_refused() -> None:
+    with pytest.raises(ValueError, match="exceed"):
+        scan_cuda.stage_padded(_hay(129), (128,), CPU)
+
+
+@pytest.mark.parametrize("n", [1, 3000, 4096, 5000])
+def test_every_shard_is_its_slice_of_the_padded_layout(n: int) -> None:
+    hay, LT, ranks = _hay(n), 1024, 5
+    want = _padded(hay, ranks * LT)
+    trace.reset_counters()
+    for r in range(ranks):
+        got = sharded._shard_of(hay, r, LT, CPU)
+        np.testing.assert_array_equal(got.numpy(), want[r * LT:(r + 1) * LT])
+    assert trace.counters() == {
+        "pin_bytes": n, "pad_bytes": ranks * LT - n, "h2d_bytes": ranks * LT,
+    }
+
+
+def test_dense_segments_stage_each_byte_once(monkeypatch) -> None:
+    """``scan_device`` over three segments: each segment's context and
+    bytes are pinned once and only its layout's tail is padded."""
+    names = [b"hello", b"world"]
+    am = build_automaton(names)
+    tables = scan_cuda.DeviceTables(am, "dfa", CPU, packed2_max_bytes=0)
+    hay = np.frombuffer(b"xhello worldy" * 700, dtype=np.uint8)
+    staged: list[tuple[int, int]] = []
+    orig = scan_cuda.stage_padded
+
+    def spy(h, shape, device, stream=None):
+        staged.append((len(h), int(np.prod(shape))))
+        return orig(h, shape, device, stream)
+
+    monkeypatch.setattr(scan_cuda, "stage_padded", spy)
+    trace.reset_counters()
+    pos, _st = scan_cuda.scan_device(am, hay, tables, segment_bytes=4096)
+    assert len(staged) == 3 and len(pos) == 2 * 700
+    assert trace.counters() == {
+        "pin_bytes": sum(m for m, _ in staged),
+        "pad_bytes": sum(t - m for m, t in staged),
+        "h2d_bytes": sum(t for _, t in staged),
+    }

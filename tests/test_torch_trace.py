@@ -144,6 +144,23 @@ def test_a_session_records_encode_stage_pad_and_pin(path):
     assert sum(r[0] == "encode" for r in rec.ranges) == 1
 
 
+def test_a_document_with_no_tail_opens_one_pad_span_a_call():
+    """1,024 rows of 128 bytes fill the Teddy layout: nothing is padded,
+    and the call still opens one (empty) ``pad`` span, so ``pad_ms.doc``
+    reads a time and not nothing."""
+    doc = DOC.encode()[: 1024 * 128].decode()
+    assert len(doc.encode()) == 1024 * 128
+    ac = _teddy()
+    assert ac.find_matches_as_indexes(doc)
+    trace.reset_counters()
+    rec = _traced(lambda: [ac.find_matches_as_indexes(doc) for _ in range(2)])
+    assert ac.stats()["last_backend"] == "teddy"
+    assert sum(r[0] == "pad" for r in rec.ranges) == 2
+    assert sum(r[0] == "pin" for r in rec.ranges) == 2
+    c = trace.counters()
+    assert (c["pad_bytes"], c["pin_bytes"]) == (0, 2 * 1024 * 128)
+
+
 def test_batch_expand_is_inside_scan_batch_and_read_by_resolve_ms():
     _ac, call = _warm("batch")
     rec = _traced(call)
@@ -223,8 +240,8 @@ def test_counters_of_the_teddy_document_path():
     trace.reset_counters()
     call()
     assert trace.counters() == {
-        "scanned_bytes": n, "encode_bytes": n, "pad_bytes": rows_p * 128,
-        "pin_bytes": rows_p * 128, "h2d_bytes": rows_p * 128,
+        "scanned_bytes": n, "encode_bytes": n, "pad_bytes": rows_p * 128 - n,
+        "pin_bytes": n, "h2d_bytes": rows_p * 128,
     }
 
 
@@ -237,8 +254,8 @@ def test_counters_of_the_dense_document_path(monkeypatch):
     [(L, T)] = layouts
     assert L * T >= n
     assert trace.counters() == {
-        "scanned_bytes": n, "encode_bytes": n, "pad_bytes": L * T,
-        "pin_bytes": L * T, "h2d_bytes": L * T,
+        "scanned_bytes": n, "encode_bytes": n, "pad_bytes": L * T - n,
+        "pin_bytes": n, "h2d_bytes": L * T,
     }
 
 
@@ -280,8 +297,10 @@ def test_counters_of_a_local_mesh_count_every_rank(monkeypatch):
     ac.find_matches_as_indexes(DOC)
     L, T = layouts[0]
     assert len({tuple(x) for x in layouts}) == 1
+    n = len(DOC.encode())
     c = trace.counters()
-    assert c["pad_bytes"] == c["pin_bytes"] == c["h2d_bytes"] == 2 * L * T
+    assert (c["pin_bytes"], c["pad_bytes"], c["h2d_bytes"]) == (
+        n, 2 * L * T - n, 2 * L * T)
 
 
 def test_counters_add_under_concurrent_threads():
@@ -336,10 +355,11 @@ def test_a_traced_cell_reports_every_new_metric(cell, monkeypatch):
         assert got[name]["value"] > 0, name
     c = trace.counters()
     if cell == "names1k-doc64m":
-        # every document is 120,000 bytes and stages one L x T layout
+        # every document is 120,000 bytes and stages one L x T layout:
+        # encoded and pinned once, and only the layout's tail padded
         (L, T), = set(layouts)
         assert got["host_bytes_per_byte.doc"]["value"] == pytest.approx(
-            (120_000 + 2 * L * T) / 120_000)
+            (120_000 + L * T) / 120_000)
     else:
         S = c["scanned_bytes"]
         assert got["host_bytes_per_byte.batch"]["value"] == pytest.approx(
