@@ -44,6 +44,11 @@ NEW_METRICS = {
     "names4k-lines20k": ["encode_ms.batch", "pad_ms.batch", "pin_ms.batch",
                          "gc_full_ms.batch", "host_bytes_per_byte.batch",
                          "h2d_bytes_per_byte.batch"],
+    # the doc metrics read in the binary cell too; scan_roofline.doc reads
+    # kernel time, which a CPU trace lacks
+    "bytes50k-bin1g": ["stage_ms.doc", "pad_ms.doc", "pin_ms.doc",
+                       "resolve_ms.doc", "api_self_ms.doc", "doc_call_p95_ms",
+                       "device_idle_pct.doc", "host_bytes_per_byte.doc"],
 }
 
 
@@ -360,6 +365,15 @@ def test_a_traced_cell_reports_every_new_metric(cell, monkeypatch):
         (L, T), = set(layouts)
         assert got["host_bytes_per_byte.doc"]["value"] == pytest.approx(
             (120_000 + L * T) / 120_000)
+    elif cell == "bytes50k-bin1g":
+        # one segment a document, not encoded: pinned once and its
+        # layout's tail padded, the whole layout copied to the device
+        (L, T), = set(layouts)
+        assert "encode_bytes" not in c
+        assert got["host_bytes_per_byte.doc"]["value"] == pytest.approx(
+            L * T / 120_000)
+        assert c["h2d_bytes"] / c["scanned_bytes"] == pytest.approx(
+            L * T / 120_000)
     else:
         S = c["scanned_bytes"]
         assert got["host_bytes_per_byte.batch"]["value"] == pytest.approx(
