@@ -63,7 +63,7 @@ from .models.engine import Implementation, MatchKind, select_engine
 from .ops import resolve as _resolve
 from .ops import scan_host
 from .utils import trace
-from .utils.buffers import as_byte_view, pattern_bytes
+from .utils.buffers import as_byte_view, ascii_view, pattern_bytes
 from .utils.codepoints import byte_to_codepoint_prefix
 
 #: haystacks up to this many bytes use the sequential python walk.
@@ -1175,9 +1175,12 @@ class _MatcherBase:
         return s
 
 
-def _encode(haystack: str) -> tuple[bytes, np.ndarray]:
-    """A ``str`` haystack's UTF-8 bytes and their uint8 view, counted as
-    scanned and encoded bytes (the ``encode`` span)."""
+def _encode(haystack: str) -> tuple[np.ndarray, Optional[bytes]]:
+    """A ``str`` haystack's UTF-8 as a uint8 array, and the encoded
+    ``bytes`` it views, or None for an ASCII string, whose own storage is
+    viewed instead (:func:`~.utils.buffers.ascii_view`).  Counted as
+    scanned bytes, and as ``str_view_bytes`` or ``encode_bytes`` (the
+    ``encode`` span around either)."""
     if not isinstance(haystack, str):
         # PyO3's argument-extraction TypeError for `haystack: &str`
         # (upstream src/lib.rs:230,254)
@@ -1185,12 +1188,15 @@ def _encode(haystack: str) -> tuple[bytes, np.ndarray]:
             f"argument 'haystack': '{type(haystack).__name__}' object "
             "cannot be converted to 'PyString'"
         )
+    data = None
     with trace.span("encode"):
-        data = haystack.encode("utf-8")
-        hay = np.frombuffer(data, dtype=np.uint8)
-    trace.count("scanned_bytes", len(data))
-    trace.count("encode_bytes", len(data))
-    return data, hay
+        hay = ascii_view(haystack)
+        if hay is None:
+            data = haystack.encode("utf-8")
+            hay = np.frombuffer(data, dtype=np.uint8)
+    trace.count("scanned_bytes", len(hay))
+    trace.count("str_view_bytes" if data is None else "encode_bytes", len(hay))
+    return hay, data
 
 
 def _encode_batch(
@@ -1275,11 +1281,10 @@ class AhoCorasick(_MatcherBase):
         self, haystack: str, overlapping: bool = False
     ) -> list[tuple[int, int, int]]:
         """All matches as ``(pattern_index, start, end)`` code-point tuples."""
-        data, hay = _encode(haystack)
+        hay, data = _encode(haystack)
         matches = self._find(hay, overlapping)
-        if not matches:
-            return []
-        if len(data) == len(haystack):  # pure ASCII: byte index == cp index
+        # pure ASCII (viewed, or a subclass encoded): byte index == cp index
+        if not matches or data is None or len(data) == len(haystack):
             return matches
         cp = byte_to_codepoint_prefix(hay)
         return [(p, int(cp[s]), int(cp[e])) for (p, s, e) in matches]
@@ -1315,10 +1320,12 @@ class AhoCorasick(_MatcherBase):
         (both arms produce equal values — reference upstream
         src/lib.rs:263-271).
         """
-        data, hay = _encode(haystack)
+        hay, data = _encode(haystack)
         matches = self._find(hay, overlapping)
         if self._patterns is not None:
             return [self._patterns[p] for (p, _, _) in matches]
+        if data is None:  # ASCII: the slice is the matched bytes' text
+            return [haystack[s:e] for (_, s, e) in matches]
         return [data[s:e].decode("utf-8") for (_, s, e) in matches]
 
     def find_matches_as_strings_batch(

@@ -19,6 +19,9 @@ site, never a document:
 
 * ``scanned_bytes``: haystack bytes of every public call;
 * ``encode_bytes``: UTF-8 bytes the ``str`` API's encode produced;
+* ``str_view_bytes``: bytes of the ASCII ``str`` haystacks the
+  single-document API viewed in place of an encode (``encode_bytes``
+  counts the rest);
 * ``pad_bytes``: every host array a ``pad`` span allocates and fills (a
   batch layout), and every tail ``scan_cuda.stage_padded`` zeroes;
 * ``pin_bytes``: every pinned buffer ``scan_cuda.to_device`` fills, and

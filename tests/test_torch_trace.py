@@ -36,6 +36,8 @@ NAMES = config.patterns({"patterns": {"recipe": "names", "count": 200}}, SEED)
 #: one document of the LONG text, and a batch of its lines
 DOC = traffic.inputs(NAMES, dict(traffic.load("doc64m"), doc_chars=150_000,
                                  distinct=1), SEED)[0]
+#: DOC with a non-ASCII character on each of its lines: it is encoded
+DOC_UTF8 = DOC.replace("\n", " \u00e9\n")
 LINES = traffic.inputs(NAMES, dict(traffic.load("lines20k"), corpus_lines=300,
                                    lines_per_call=300), SEED)[0]
 NEW_METRICS = {
@@ -244,9 +246,11 @@ def test_counters_of_the_teddy_document_path():
                  scan_teddy._bucket(rows, lo=8))
     trace.reset_counters()
     call()
+    # an ASCII document is staged from the string's own storage
     assert trace.counters() == {
-        "scanned_bytes": n, "encode_bytes": n, "pad_bytes": rows_p * 128 - n,
-        "pin_bytes": n, "h2d_bytes": rows_p * 128,
+        "scanned_bytes": n, "str_view_bytes": n,
+        "pad_bytes": rows_p * 128 - n, "pin_bytes": n,
+        "h2d_bytes": rows_p * 128,
     }
 
 
@@ -259,9 +263,25 @@ def test_counters_of_the_dense_document_path(monkeypatch):
     [(L, T)] = layouts
     assert L * T >= n
     assert trace.counters() == {
-        "scanned_bytes": n, "encode_bytes": n, "pad_bytes": L * T - n,
+        "scanned_bytes": n, "str_view_bytes": n, "pad_bytes": L * T - n,
         "pin_bytes": n, "h2d_bytes": L * T,
     }
+
+
+@pytest.mark.parametrize("path", ["teddy", "dense"])
+def test_counters_of_a_non_ascii_document_path(path, monkeypatch):
+    ac, _call = _warm(path)
+    layouts = _spy(monkeypatch, scan_cuda, "choose_layout")
+    n = len(DOC_UTF8.encode())
+    trace.reset_counters()
+    assert ac.find_matches_as_indexes(DOC_UTF8)
+    assert ac.stats()["last_backend"] == PATHS[path][2]
+    c = trace.counters()
+    if path == "dense":
+        [(L, T)] = layouts
+        assert (c["pad_bytes"], c["h2d_bytes"]) == (L * T - n, L * T)
+    assert c["scanned_bytes"] == c["encode_bytes"] == c["pin_bytes"] == n
+    assert "str_view_bytes" not in c
 
 
 def test_counters_of_the_batch_path():
@@ -306,6 +326,8 @@ def test_counters_of_a_local_mesh_count_every_rank(monkeypatch):
     c = trace.counters()
     assert (c["pin_bytes"], c["pad_bytes"], c["h2d_bytes"]) == (
         n, 2 * L * T - n, 2 * L * T)
+    assert c["scanned_bytes"] == c["str_view_bytes"] == n
+    assert "encode_bytes" not in c
 
 
 def test_counters_add_under_concurrent_threads():
@@ -360,11 +382,14 @@ def test_a_traced_cell_reports_every_new_metric(cell, monkeypatch):
         assert got[name]["value"] > 0, name
     c = trace.counters()
     if cell == "names1k-doc64m":
-        # every document is 120,000 bytes and stages one L x T layout:
-        # encoded and pinned once, and only the layout's tail padded
+        # every document is 120,000 ASCII bytes and stages one L x T
+        # layout: pinned once from the string's own storage, never
+        # encoded, and only the layout's tail padded
         (L, T), = set(layouts)
+        assert "encode_bytes" not in c
+        assert c["str_view_bytes"] == c["scanned_bytes"]
         assert got["host_bytes_per_byte.doc"]["value"] == pytest.approx(
-            (120_000 + L * T) / 120_000)
+            L * T / 120_000)
     elif cell == "bytes50k-bin1g":
         # one segment a document, not encoded: pinned once and its
         # layout's tail padded, the whole layout copied to the device
