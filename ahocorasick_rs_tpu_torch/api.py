@@ -610,9 +610,7 @@ class _MatcherBase:
             with trace.span("pad"):
                 buf = np.zeros(B * T, dtype=np.uint8)
                 lens = np.zeros(max(B, 1), dtype=np.int64)
-                for i, d in enumerate(docs):
-                    buf[i * T : i * T + len(d)] = d
-                    lens[i] = len(d)
+                scan_cuda.fill_rows(docs, buf.reshape(B, T), lens)
             trace.count("pad_bytes", buf.nbytes + lens.nbytes)
             # the staged flat buffer IS a haystack: padding can only
             # over-fire, never match (matches are filtered below); with a

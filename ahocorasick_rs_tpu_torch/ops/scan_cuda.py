@@ -14,11 +14,15 @@ the exactness argument).  The haystack crosses to the device as raw
    ``csrc/scan.cu``); the sparse engine runs the per-state edge-search
    scan (K7, ``csrc/sparse.cu``).
 2. **Compaction** (K3): matched positions are compacted on the device into
-   a fixed-capacity buffer plus an exact count; the caller retries with a
-   larger capacity on overflow.  Only O(matches) bytes return to the host.
+   a fixed-capacity buffer plus an exact count.  :func:`fit_capacity` is
+   the one retry protocol of every dense dispatch, one device or sharded:
+   grow the capacity on overflow, or bail out of a match-dense input.
+   Only O(matches) bytes return to the host.
 
 Many small documents scan in one dispatch through :func:`scan_device_batch`
-(K5, ``csrc/batch.cu``): one document per row, no halo.
+(K5, ``csrc/batch.cu``): one document per row, no halo.  The rows'
+layout is :func:`batch_layout`'s, staged by :func:`stage_rows` (one
+document's layout by :func:`stage_padded`).
 
 Each kernel has a plain PyTorch version of the same function beside its
 wrapper.  The wrapper takes it for CPU tensors (the tests); for CUDA
@@ -30,7 +34,7 @@ from __future__ import annotations
 import ctypes
 import math
 from functools import partial
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -48,42 +52,13 @@ MAX_LANES = 1 << 16
 #: haystack bytes per device segment; larger inputs stream through
 #: independent halo'd segments, bounding device memory for the state stream.
 SEGMENT_BYTES = 256 << 20
-#: compaction-overflow totals past max(this, segment/8) raise
+#: compaction-overflow totals past max(this, a dispatch's bytes / 8) raise
 #: :class:`~.resolve.MatchDenseError` instead of growing the cap toward the
-#: segment length (density bailout; api._find re-routes)
+#: dispatch's length (density bailout, :func:`fit_capacity`; api._find
+#: re-routes)
 DENSE_BAILOUT_MIN = 1 << 22
 #: mask bytes per block of the plain two-level compaction
 COMPACT_BLOCK = 4096
-
-
-def to_device(
-    buf: np.ndarray, device: torch.device,
-    stream: Optional[torch.cuda.Stream] = None,
-):
-    """Copy a host uint8 array to ``device`` (through pinned memory on CUDA).
-
-    The pinned buffer's fill (on the CPU device, the copy) is the ``pin``
-    span, and its bytes count as ``pin_bytes`` and ``h2d_bytes``.
-
-    The copy is issued ``non_blocking`` from a pinned buffer, so the host
-    can stage the next segment while the device still works; the caching
-    host allocator keeps the pinned block alive until the copy is done.
-    Without ``stream`` the copy goes on the current stream and the tensor
-    is returned.  With a side ``stream`` (CUDA only) the copy goes there,
-    an event is recorded after it, and ``(tensor, event)`` is returned:
-    before a kernel on another stream reads the tensor, that stream must
-    wait on the event, and the tensor must be ``record_stream``-ed to it
-    (:meth:`.scan_teddy.TeddyScanner.occurrences_streamed`).
-    """
-    trace.count("pin_bytes", buf.nbytes)
-    trace.count("h2d_bytes", buf.nbytes)
-    if device.type != "cuda":
-        with trace.span("pin"):
-            return torch.from_numpy(np.array(buf, dtype=np.uint8, copy=True))
-    with trace.span("pin"):
-        pinned = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
-        pinned.numpy()[...] = buf
-    return _copy_to(pinned, device, stream)
 
 
 def _copy_to(
@@ -125,8 +100,13 @@ def stage_padded(
     ``Tensor.copy_``, over the intra-op threads (the ``pin`` span,
     ``pin_bytes``), and only the tail ``[n, total)`` is zeroed (the
     ``pad`` span, opened even when the tail is empty; ``pad_bytes``).
-    The whole layout is copied to the device (``h2d_bytes``) as
-    :func:`to_device` copies it, with the same ``stream`` contract; the
+    The whole layout is copied ``non_blocking`` to the device
+    (``h2d_bytes``): without ``stream`` on the current stream, returning
+    the tensor; with a side ``stream`` (CUDA only) there, returning
+    ``(tensor, ready event)``, and before a kernel on another stream reads
+    the tensor, that stream must wait on the event and the tensor must be
+    ``record_stream``-ed to it
+    (:meth:`.scan_teddy.TeddyScanner.occurrences_streamed`).  The
     allocator hands the block out again only after that copy's event.
     On the CPU device the same layout is built in an ordinary tensor,
     counted the same way.
@@ -147,6 +127,48 @@ def stage_padded(
         block[n:].zero_()
     block = block.view(shape)
     return _copy_to(block, device, stream) if cuda else block
+
+
+def fill_rows(docs: list, rows: np.ndarray, lens: np.ndarray) -> None:
+    """Write document ``i`` at the head of row ``i`` of ``rows`` (uint8
+    ``[R, T]``) and its length into ``lens[i]``; lengths past the
+    documents read 0.  The row bytes past each document are left as they
+    are."""
+    for i, d in enumerate(docs):
+        rows[i, : len(d)] = d
+    lens[: len(docs)] = [len(d) for d in docs]
+    lens[len(docs) :] = 0
+
+
+def stage_rows(
+    docs: list, shape: tuple[int, int], device: torch.device
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage ``docs``, one a row, in a zero-padded uint8 ``[R, T]`` layout,
+    with their int32 lengths, on ``device``, in one host pass.
+
+    On CUDA both blocks come from the caching host allocator, as in
+    :func:`stage_padded`.  The row block is zeroed once (the ``pad``
+    span, ``pad_bytes`` ``R*T``), then the documents and their lengths are
+    written by :func:`fill_rows` (the ``pin`` span, ``pin_bytes`` the
+    documents' bytes and ``4*R``), and both blocks are copied
+    ``non_blocking`` on the current stream (``h2d_bytes`` ``R*T + 4*R``).
+    On the CPU device the same layout is built in ordinary tensors,
+    counted the same way.  Returns ``(rows, lens)`` on ``device``.
+    """
+    R, T = shape
+    trace.count("pad_bytes", R * T)
+    trace.count("pin_bytes", sum(len(d) for d in docs) + 4 * R)
+    trace.count("h2d_bytes", R * T + 4 * R)
+    cuda = device.type == "cuda"
+    with trace.span("pad"):
+        rows = torch.empty(shape, dtype=torch.uint8, pin_memory=cuda)
+        lens = torch.empty(R, dtype=torch.int32, pin_memory=cuda)
+        rows.zero_()
+    with trace.span("pin"):
+        fill_rows(docs, rows.numpy(), lens.numpy())
+    if not cuda:
+        return rows, lens
+    return _copy_to(rows, device, None), _copy_to(lens, device, None)
 
 
 def build_lanes(
@@ -372,13 +394,59 @@ def _scan_batch_compact(
     )
 
 
-def _fetch(
-    pos: torch.Tensor, st: torch.Tensor, total: torch.Tensor, cap: int
-) -> tuple[np.ndarray, np.ndarray, int]:
-    """One host fetch for all outputs (waits for the device)."""
+def _scan_fetch(
+    span: str, scan: Callable, cap: int
+) -> tuple[tuple[np.ndarray, np.ndarray], int]:
+    """``scan(cap=cap)`` under ``span``, then one host fetch of its
+    outputs (waits for the device): ``((positions, states), total)``, as
+    :func:`fit_capacity`'s ``run`` returns them."""
+    with trace.span(span):
+        pos, st, total = scan(cap=cap)
     with trace.span("fetch"):
         out = torch.cat([pos, st, total]).cpu().numpy()
-    return out[:cap], out[cap : 2 * cap], int(out[-1])
+    return (out[:cap], out[cap : 2 * cap]), int(out[-1])
+
+
+def fit_capacity(
+    tables: "DeviceTables",
+    cap: int,
+    run: Callable[[int], tuple[Any, int]],
+    limit: int,
+    where: str,
+) -> tuple[Any, int, int]:
+    """The compaction-capacity protocol of every dense dispatch.
+
+    ``run(cap)`` runs the kernels at compaction capacity ``cap`` and
+    returns the fetched outputs and the exact total (sharded: the worst
+    rank's).  From the caller's ``cap``, a total past the capacity either
+    raises :class:`~.resolve.MatchDenseError` (past
+    ``max(DENSE_BAILOUT_MIN, limit)``) or grows the capacity to the
+    total's bucket and runs again.  The capacity the total fits is left in
+    ``tables.last_cap`` for the next call.  Returns
+    ``(fetched, total, cap)``.
+    """
+    while True:
+        fetched, total = run(cap)
+        if total <= cap:
+            break
+        if total > max(DENSE_BAILOUT_MIN, limit):
+            # match-dense input: growing the capacity toward its length and
+            # expanding occurrence sets on the host is the wrong complexity
+            # class; the host resolve paths take it (api._find, _find_batch)
+            raise MatchDenseError(f"{total} matched positions in {where}")
+        cap = _bucket(total, lo=4096)
+    tables.last_cap = _bucket(total, lo=4096)
+    return fetched, total, cap
+
+
+def batch_layout(lens: list[int], n_dev: int) -> tuple[int, int]:
+    """``(Bb, T)``: ``Bb`` rows (a multiple of ``n_dev``; rank ``d`` owns
+    rows ``[d*Bb/n_dev, (d+1)*Bb/n_dev)``) of ``T`` bytes."""
+    T = _bucket(max(max(lens, default=1), 16), lo=16)
+    Bb = _bucket(max(len(lens), MIN_LANES, n_dev), lo=MIN_LANES)
+    if Bb % n_dev:  # rank counts are not always powers of two
+        Bb = -(-Bb // n_dev) * n_dev
+    return Bb, T
 
 
 def scan_device_batch(
@@ -392,48 +460,21 @@ def scan_device_batch(
     occupies positions ``[i*T, i*T + len(doc_i))`` — the layout
     ``ops.resolve.resolve_batch`` consumes directly.
     """
-    B = len(docs)
-    if B == 0:
+    if not docs:
         return np.zeros(0, np.int64), np.zeros(0, np.int64), 1
-    Tmax = max((len(d) for d in docs), default=1)
-    T = _bucket(max(Tmax, 16), lo=16)
-    Bb = _bucket(max(B, MIN_LANES), lo=MIN_LANES)
+    Bb, T = batch_layout([len(d) for d in docs], 1)
     with trace.span("stage"):
-        with trace.span("pad"):
-            buf = np.zeros((Bb, T), dtype=np.uint8)
-            lens = np.zeros(Bb, dtype=np.int32)
-            for i, d in enumerate(docs):
-                buf[i, : len(d)] = d
-                lens[i] = len(d)
-        trace.count("pad_bytes", buf.nbytes + lens.nbytes)
-        hay2d = to_device(buf, tables.device)
-        lens_dev = torch.from_numpy(lens).to(tables.device)
-        trace.count("h2d_bytes", lens.nbytes)
-    cap = tables.last_cap
-    while True:
-        with trace.span("batch_scan"):
-            outs = _scan_batch_compact(
-                tables.table,
-                tables.classes,
-                hay2d,
-                lens_dev,
-                tables.match_count,
-                cap,
-                tables.use_classes,
-                tables.lane_table(),
-                tables.halo,
-            )
-        pos, st, total = _fetch(*outs, cap)
-        if total <= cap:
-            break
-        if total > max(DENSE_BAILOUT_MIN, (Bb * T) // 8):
-            # density bailout, same contract as scan_device: the host
-            # resolve paths own the match-dense regime (api._find_batch)
-            raise MatchDenseError(
-                f"{total} matched positions in a {Bb}x{T} batch"
-            )
-        cap = _bucket(total, lo=4096)
-    tables.last_cap = max(4096, _bucket(max(total, 1), lo=4096))
+        hay2d, lens = stage_rows(docs, (Bb, T), tables.device)
+
+    scan = partial(
+        _scan_batch_compact, tables.table, tables.classes, hay2d, lens,
+        tables.match_count, use_classes=tables.use_classes,
+        flagged=tables.lane_table(), halo=tables.halo,
+    )
+    (pos, st), total, _ = fit_capacity(
+        tables, tables.last_cap, partial(_scan_fetch, "batch_scan", scan),
+        Bb * T // 8, f"a {Bb}x{T} batch",
+    )
     return pos[:total].astype(np.int64), st[:total].astype(np.int64), T
 
 
@@ -703,7 +744,8 @@ class DeviceTables:
         return True
 
 
-def _bucket(x: int, lo: int = 16) -> int:
+def _bucket(x: int, lo: int) -> int:
+    """The least ``lo * 2**k`` at or above ``x``."""
     b = lo
     while b < x:
         b <<= 1
@@ -771,22 +813,10 @@ def scan_device(
                 tables.match_count, m, L, T, halo,
                 use_classes=tables.use_classes, flagged=tables.lane_table(),
             )
-        cap = tables.last_cap
-        while True:
-            with trace.span(span):
-                outs = scan(cap=cap)
-            pos, st, total = _fetch(*outs, cap)
-            if total <= cap:
-                break
-            if total > max(DENSE_BAILOUT_MIN, m // 8):
-                # match-dense corpus: growing the compaction capacity
-                # toward n and expanding occurrence sets on host is the
-                # wrong complexity class — let the host resolver take it
-                raise MatchDenseError(
-                    f"{total} matched positions in a {m}-byte segment"
-                )
-            cap = _bucket(total, lo=4096)
-        tables.last_cap = max(4096, _bucket(total, lo=4096))
+        (pos, st), total, _ = fit_capacity(
+            tables, tables.last_cap, partial(_scan_fetch, span, scan),
+            m // 8, f"a {m}-byte segment",
+        )
         pos = pos[:total].astype(np.int64)
         st = st[:total].astype(np.int64)
         keep = pos >= drop

@@ -28,6 +28,8 @@ wrapper takes for CPU tensors.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
 
@@ -36,7 +38,7 @@ from .._kernels import pack_fire_tables
 from ..models.automaton import Automaton, PAD_BYTE
 from ..models.prefilter import Prefilter
 from ..utils import trace
-from .scan_cuda import DeviceTables, compact_sparse, stage_padded
+from .scan_cuda import DeviceTables, _bucket, compact_sparse, stage_padded
 
 #: staged rows per block of the layout (``stage`` pads the row count to a
 #: power of two of at least this many rows once the haystack reaches it)
@@ -257,13 +259,6 @@ def _fire_verify(
     return fire_pos, ftotal, win, step, st, mtotal
 
 
-def _bucket(x: int, lo: int = 1024) -> int:
-    b = lo
-    while b < x:
-        b <<= 1
-    return b
-
-
 def expand_verified(
     am: Automaton,
     ws: np.ndarray,
@@ -457,14 +452,12 @@ class TeddyScanner:
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
         """Complete (pids, starts, ends) for the haystack, or None when the
         observed fire rate says the dense scan should take over."""
-        am = self.am
         n = len(hay)
-        W = am.max_len + COARSE - 1  # window covers COARSE starts
+        W = self.am.max_len + COARSE - 1  # window covers COARSE starts
         if hay2d is None:
             hay2d = self.stage(hay)
-        cap, cap2 = self.fire_cap, self.match_cap
-        too_many = max(1 << 16, n // 2)  # groups×W beyond this: dense wins
-        while True:
+
+        def run(cap: int, cap2: int) -> np.ndarray:
             with trace.span("fire_verify"):
                 outs = _fire_verify(
                     self.tables,
@@ -483,35 +476,73 @@ class TeddyScanner:
                 )
             # ONE device-to-host copy for every output (waits for the device)
             with trace.span("fetch"):
-                flat = torch.cat(
+                return torch.cat(
                     [o.reshape(-1).to(torch.int64) for o in outs]
-                ).cpu().numpy()
-            fire_np, ftotal = flat[:cap], int(flat[cap])
-            win, step, st = flat[cap + 1 : -1].reshape(3, cap2)
-            mtotal = int(flat[-1])
+                ).cpu().numpy()[None]
+
+        return self.collect(run, n, (self.fire_cap, self.match_cap))
+
+    def collect(
+        self,
+        run: Callable[[int, int], np.ndarray],
+        n: int,
+        caps: tuple[int, int],
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
+        """The capacity protocol and expand of a prefiltered scan, on one
+        device or sharded.
+
+        ``run(cap, cap2)`` runs fire, compaction and verify at the fire
+        and match capacities and returns every rank's outputs as int64
+        ``[ranks, cap + 3*cap2 + 2]`` (:func:`_fire_verify`'s six,
+        flattened; one rank on one device), window starts global.  From
+        ``caps``, a fire total (the largest rank's) past ``cap`` either
+        abandons the scan, when the summed fire total says verification
+        would rescan too much, or grows ``cap`` to its bucket; then a match
+        total past ``cap2`` grows ``cap2``.  The fitted capacities are left
+        in ``fire_cap`` and ``match_cap``.  Returns the complete (pids,
+        starts, ends) in canonical order, or None with ``worthwhile``
+        False when the dense scan should take over.
+        """
+        W = self.am.max_len + COARSE - 1  # window covers COARSE starts
+        too_many = max(1 << 16, n // 2)  # groups×W beyond this: dense wins
+        cap, cap2 = caps
+        while True:
+            got = run(cap, cap2)
+            ftot, mtot = got[:, cap], got[:, -1]
+            ftotal, mtotal = int(ftot.max()), int(mtot.max())
             if ftotal > cap:
-                if ftotal * max(W, 1) > too_many:
+                if int(ftot.sum()) * W > too_many:
                     # keep the sticky caps in step with what we observed so
                     # a retried corpus doesn't re-run the undersized kernel
-                    self.fire_cap = max(self.fire_cap, _bucket(ftotal))
+                    self.fire_cap = max(
+                        self.fire_cap, _bucket(ftotal, lo=1024)
+                    )
                     self.worthwhile = False
                     return None
-                cap = _bucket(ftotal)
-                continue
-            if mtotal > cap2:  # trustworthy only once ftotal <= cap
-                cap2 = _bucket(mtotal)
-                continue
-            break
-        self.fire_cap = max(1 << 14, _bucket(max(ftotal, 1)))
-        self.match_cap = max(1 << 12, _bucket(max(mtotal, 1)))
-        if ftotal * max(W, 1) > too_many:
-            # verification rescans too much — let caller fall back
+                cap = _bucket(ftotal, lo=1024)
+            elif mtotal > cap2:  # trustworthy only once ftotal <= cap
+                cap2 = _bucket(mtotal, lo=1024)
+            else:
+                break
+        self.fire_cap = max(1 << 14, _bucket(ftotal, lo=1024))
+        self.match_cap = max(1 << 12, _bucket(mtotal, lo=1024))
+        # the in-loop abandon's threshold: the backend choice depends on
+        # the corpus, not on incidental cap history
+        if int(ftot.sum()) * W > too_many:
             self.worthwhile = False
             return None
-        win = win[:mtotal]
-        step = step[:mtotal]
-        st = st[:mtotal]
+        win, step, st = np.moveaxis(
+            got[:, cap + 1 : -1].reshape(len(got), 3, cap2), 1, 0
+        )
         with trace.span("expand"):
-            pids, starts, ends = expand_verified(am, fire_np[win], step, st)
+            parts = [
+                expand_verified(self.am, got[d, :cap][win[d, :k]],
+                                step[d, :k], st[d, :k])
+                for d, k in enumerate(mtot) if k
+            ]
+            if not parts:
+                z = np.zeros(0, dtype=np.int64)
+                return z.astype(np.int32), z, z
+            pids, starts, ends = (np.concatenate(x) for x in zip(*parts))
             order = np.lexsort((pids, starts, ends))
         return pids[order], starts[order], ends[order]

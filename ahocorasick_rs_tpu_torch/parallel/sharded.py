@@ -39,6 +39,7 @@ its right neighbour.
 from __future__ import annotations
 
 import threading
+from functools import partial
 from typing import TYPE_CHECKING, Callable, Optional, Sequence, TypeVar, Union
 
 import numpy as np
@@ -47,18 +48,17 @@ import torch.distributed as dist
 
 from .. import _kernels
 from ..models.automaton import Automaton, PAD_BYTE
-from ..ops.resolve import MatchDenseError
 from ..ops.scan_cuda import (
-    DENSE_BAILOUT_MIN,
-    MIN_LANES,
     DeviceTables,
     _bucket,
     _compact_states,
     _scan_compact,
+    batch_layout,
     compact_sparse,
+    fit_capacity,
     scan_batch,
     stage_padded,
-    to_device,
+    stage_rows,
 )
 from ..utils import trace
 
@@ -376,7 +376,7 @@ def dense_layout(
     """``(L, T)`` per rank: ``n_dev * L`` lanes of ``T`` bytes; rank ``d``
     owns bytes ``[d*L*T, (d+1)*L*T)``."""
     L = lanes_per_device
-    return L, _bucket(max(-(-n // (n_dev * L)), halo, 16))
+    return L, _bucket(max(-(-n // (n_dev * L)), halo, 16), lo=16)
 
 
 def shard_tail(shard: torch.Tensor, n_local: int, halo: int) -> torch.Tensor:
@@ -421,6 +421,28 @@ def _gathered(
     with trace.span("gather"):
         flat = torch.cat([p.reshape(-1).to(torch.int64) for p in parts])
         return g.all_gather(flat).cpu().numpy()
+
+
+def _fit_gathered(
+    g: ShardGroup, tables: DeviceTables, cap: int, span: str,
+    body: Callable[[int], tuple[torch.Tensor, ...]], limit: int, where: str,
+) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`~.scan_cuda.fit_capacity` over the ranks: ``body(cap)``
+    under ``span`` on this rank, every rank's ``(positions, states,
+    total)`` gathered, and the worst rank's total held against the
+    capacity.  Returns every rank's matches in rank order."""
+
+    def run(cap: int) -> tuple[np.ndarray, int]:
+        with trace.span(span):
+            outs = body(cap)
+        got = _gathered(g, list(outs))
+        return got, int(got[:, -1].max())
+
+    got, _, cap = fit_capacity(tables, cap, run, limit, where)
+    totals = got[:, -1]
+    pos = [got[d, : totals[d]] for d in range(g.size)]
+    st = [got[d, cap : cap + totals[d]] for d in range(g.size)]
+    return np.concatenate(pos), np.concatenate(st)
 
 
 def scan_sharded(
@@ -470,27 +492,12 @@ def scan_sharded(
                 tails[rank - 1] if rank
                 else torch.full_like(tails[0], PAD_BYTE)
             )
-    while True:
-        with trace.span("shard_scan"):
-            outs = shard_scan_body(
-                tables, shard, head, n_local, rank * LT, L, T, halo, cap
-            )
-        got = _gathered(g, list(outs))
-        totals = got[:, -1]
-        worst = int(totals.max())
-        if worst <= cap:
-            break
-        if worst > max(DENSE_BAILOUT_MIN, LT // 8):
-            # density bailout, same contract as scan_device: the host
-            # resolve paths own the match-dense regime (api._find)
-            raise MatchDenseError(
-                f"{worst} matched positions in a {LT}-byte shard"
-            )
-        cap = _bucket(worst, lo=4096)
-    tables.last_cap = max(4096, _bucket(max(worst, 1), lo=4096))
-    pos = [got[d, : totals[d]] for d in range(n_dev)]
-    st = [got[d, cap : cap + totals[d]] for d in range(n_dev)]
-    return np.concatenate(pos), np.concatenate(st)
+    return _fit_gathered(
+        g, tables, cap, "shard_scan",
+        partial(shard_scan_body, tables, shard, head, n_local, rank * LT,
+                L, T, halo),
+        LT // 8, f"a {LT}-byte shard",
+    )
 
 
 # -- prefiltered (Teddy) scan -------------------------------------------
@@ -569,7 +576,7 @@ def scan_sharded_teddy(
     sticky ones, which it shares with the single-device path.  On a
     :class:`LocalMesh` it is one call that runs every rank.
     """
-    from ..ops import scan_teddy as _teddy
+    from ..ops.scan_teddy import COARSE
 
     n = len(hay)
     if n == 0:
@@ -587,7 +594,7 @@ def scan_sharded_teddy(
         scanner.worthwhile = s0.worthwhile
         return occ
     n_dev, rank = g.size, g.rank
-    W = am.max_len + _teddy.COARSE - 1
+    W = am.max_len + COARSE - 1
     rows, Hr = teddy_layout(n, n_dev, W)
     LT = rows * 128
     with trace.span("stage"):
@@ -598,78 +605,19 @@ def scan_sharded_teddy(
             heads[rank + 1] if rank + 1 < n_dev
             else torch.zeros_like(heads[0])
         )
-    cap, cap2 = caps
-    too_many = max(1 << 16, n // 2)
-    while True:
+
+    def run(cap: int, cap2: int) -> np.ndarray:
         with trace.span("shard_teddy"):
             outs = shard_teddy_body(
                 scanner, shard, right, n - rank * LT, rank * LT, W, cap,
                 cap2,
             )
-        got = _gathered(g, list(outs))
-        pos = got[:, :cap]
-        ftot = got[:, cap]
-        win, step, st = got[:, cap + 1 : -1].reshape(n_dev, 3, cap2).transpose(
-            1, 0, 2
-        )
-        mtot = got[:, -1]
-        ftotal = int(ftot.max())
-        if ftotal > cap:
-            if int(ftot.sum()) * max(W, 1) > too_many:
-                scanner.fire_cap = max(
-                    scanner.fire_cap, _teddy._bucket(ftotal)
-                )
-                scanner.worthwhile = False
-                return None
-            cap = _teddy._bucket(ftotal)
-            continue
-        mtotal = int(mtot.max())
-        if mtotal > cap2:
-            cap2 = _teddy._bucket(mtotal)
-            continue
-        break
-    scanner.fire_cap = max(1 << 14, _teddy._bucket(max(ftotal, 1)))
-    scanner.match_cap = max(1 << 12, _teddy._bucket(max(mtotal, 1)))
-    # the in-loop abandon's threshold: the backend choice depends on the
-    # corpus, not on incidental cap history
-    if int(ftot.sum()) * max(W, 1) > too_many:
-        scanner.worthwhile = False
-        return None
-    all_p: list[np.ndarray] = []
-    all_s: list[np.ndarray] = []
-    all_e: list[np.ndarray] = []
-    with trace.span("expand"):
-        for d in range(n_dev):
-            mt = int(mtot[d])
-            if not mt:
-                continue
-            p_, s_, e_ = _teddy.expand_verified(
-                am, pos[d][win[d, :mt]], step[d, :mt], st[d, :mt]
-            )
-            all_p.append(p_)
-            all_s.append(s_)
-            all_e.append(e_)
-        if not all_p:
-            z = np.zeros(0, dtype=np.int64)
-            return z.astype(np.int32), z, z
-        pids = np.concatenate(all_p)
-        starts = np.concatenate(all_s)
-        ends = np.concatenate(all_e)
-        order = np.lexsort((pids, starts, ends))
-    return pids[order], starts[order], ends[order]
+        return _gathered(g, list(outs))
+
+    return scanner.collect(run, n, caps)
 
 
 # -- batched many-document scan -----------------------------------------
-
-
-def batch_layout(lens: list[int], n_dev: int) -> tuple[int, int]:
-    """``(Bb, T)``: ``Bb`` rows (a multiple of ``n_dev``; rank ``d`` owns
-    rows ``[d*Bb/n_dev, (d+1)*Bb/n_dev)``) of ``T`` bytes."""
-    T = _bucket(max(max(lens, default=1), 16), lo=16)
-    Bb = _bucket(max(len(lens), MIN_LANES, n_dev), lo=MIN_LANES)
-    if Bb % n_dev:  # rank counts are not always powers of two
-        Bb = -(-Bb // n_dev) * n_dev
-    return Bb, T
 
 
 def shard_batch_body(
@@ -726,34 +674,12 @@ def scan_sharded_batch(
     Bb, T = batch_layout([len(d) for d in docs], n_dev)
     Bl = Bb // n_dev
     with trace.span("stage"):
-        with trace.span("pad"):
-            buf = np.zeros((Bl, T), dtype=np.uint8)
-            lens = np.zeros(Bl, dtype=np.int32)
-            for r, d in enumerate(docs[rank * Bl : (rank + 1) * Bl]):
-                buf[r, : len(d)] = d
-                lens[r] = len(d)
-        trace.count("pad_bytes", buf.nbytes + lens.nbytes)
-        hay2d = to_device(buf, tables.device)
-        lens_dev = torch.from_numpy(lens).to(tables.device)
-        trace.count("h2d_bytes", lens.nbytes)
-    while True:
-        with trace.span("shard_batch"):
-            outs = shard_batch_body(
-                tables, hay2d, lens_dev, rank * Bl * T, cap
-            )
-        got = _gathered(g, list(outs))
-        totals = got[:, -1]
-        worst = int(totals.max())
-        if worst <= cap:
-            break
-        if worst > max(DENSE_BAILOUT_MIN, Bl * T // 8):
-            # density bailout: the host resolve paths own the match-dense
-            # regime (api._find_batch)
-            raise MatchDenseError(
-                f"{worst} matched positions in a {Bl}x{T} batch shard"
-            )
-        cap = _bucket(worst, lo=4096)
-    tables.last_cap = max(4096, _bucket(max(worst, 1), lo=4096))
-    pos = [got[d, : totals[d]] for d in range(n_dev)]
-    st = [got[d, cap : cap + totals[d]] for d in range(n_dev)]
-    return np.concatenate(pos), np.concatenate(st), T
+        hay2d, lens = stage_rows(
+            docs[rank * Bl : (rank + 1) * Bl], (Bl, T), tables.device
+        )
+    pos, st = _fit_gathered(
+        g, tables, cap, "shard_batch",
+        partial(shard_batch_body, tables, hay2d, lens, rank * Bl * T),
+        Bl * T // 8, f"a {Bl}x{T} batch shard",
+    )
+    return pos, st, T

@@ -862,7 +862,7 @@ def _k4(sw: Sweep, pieces: Optional[int]):
         sc, args = _verify_inputs(sw, pats, hay)
         cpu = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
         total = int(scan_teddy._verify_body(*cpu, 1, sc.use_classes)[3])
-        cap2 = scan_teddy._bucket(max(total, 1))
+        cap2 = scan_cuda._bucket(max(total, 1), lo=1024)
         if pieces is None:
             return _arrays(
                 scan_teddy._verify_body(*cpu, cap2, sc.use_classes))

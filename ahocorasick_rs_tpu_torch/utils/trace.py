@@ -22,11 +22,13 @@ site, never a document:
 * ``str_view_bytes``: bytes of the ASCII ``str`` haystacks the
   single-document API viewed in place of an encode (``encode_bytes``
   counts the rest);
-* ``pad_bytes``: every host array a ``pad`` span allocates and fills (a
-  batch layout), and every tail ``scan_cuda.stage_padded`` zeroes;
-* ``pin_bytes``: every pinned buffer ``scan_cuda.to_device`` fills, and
-  every haystack ``scan_cuda.stage_padded`` copies into its pinned block
-  (on the CPU device, the copies that stand in for them);
+* ``pad_bytes``: every tail ``scan_cuda.stage_padded`` zeroes, every
+  row block ``scan_cuda.stage_rows`` zeroes, and the Teddy batch's flat
+  host layout and row lengths (``api._batch_occurrences``);
+* ``pin_bytes``: every haystack ``scan_cuda.stage_padded`` copies into
+  its pinned block, and the documents and 4 bytes a row of lengths
+  ``scan_cuda.stage_rows`` writes into its pinned blocks (on the CPU
+  device, the ordinary tensors that stand in for them);
 * ``h2d_bytes``: every host-to-device copy staging issues.
 """
 

@@ -302,7 +302,7 @@ def plain_body_check(scan_teddy, v_args, cap2, use_classes) -> dict:
 
     got, total, err = err_at(cap2)
     while total > cap2:
-        cap2 = scan_teddy._bucket(total)
+        cap2 = scan_teddy._bucket(total, lo=1024)
         got, total, err = err_at(cap2)
     below = max(total // 2, 1)
     err_below = err_at(below)[2] if total > 1 else 0
@@ -465,7 +465,7 @@ def phase_kernels(dev, names, corpus, long_batch) -> dict:
     require(torch.equal(fg, fg_p), "K3 indexes differ (groups)")
     ftotal = int(ftotal)
     while ftotal > cap:  # as TeddyScanner.occurrences grows its cap
-        cap = scan_teddy._bucket(ftotal)
+        cap = scan_cuda._bucket(ftotal, lo=1024)
         fg, _ = _kernels.compact(fired_u8, cap)
     groups_ms = cuda_ms(lambda: _kernels.compact(fired_u8, cap), 20)
     groups_shape = f"mask uint8 [{G}] ({ftotal} true), cap={cap}"
@@ -1100,9 +1100,9 @@ def phase_shard_kernels(dev, names, corpus, long_batch) -> dict:
         )
         ftotal, mtotal = int(o[1]), int(o[5])
         if ftotal > fcap:
-            fcap = scan_teddy._bucket(ftotal)
+            fcap = scan_cuda._bucket(ftotal, lo=1024)
         elif mtotal > mcap:
-            mcap = scan_teddy._bucket(mtotal)
+            mcap = scan_cuda._bucket(mtotal, lo=1024)
         else:
             break
     # one body on the card is one launch each of K1, K9, K3 and K4

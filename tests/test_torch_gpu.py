@@ -247,7 +247,7 @@ def _verify_setup(cuda, names, engine: str, n: int, seed: int,
     G = -(-n // scan_teddy.COARSE)
     rng = np.random.default_rng(seed)
     groups = np.sort(rng.choice(G - 1, min(windows, G - 1), replace=False))
-    fp = np.full(scan_teddy._bucket(len(groups) + 1), -1, np.int32)
+    fp = np.full(scan_cuda._bucket(len(groups) + 1, lo=1024), -1, np.int32)
     fp[: len(groups)] = groups * scan_teddy.COARSE
     fp[len(groups)] = (G - 1) * scan_teddy.COARSE  # holds byte n - 1
     W = am.max_len + scan_teddy.COARSE - 1
@@ -1285,6 +1285,37 @@ def test_stage_padded_on_a_side_stream_returns_its_event(cuda) -> None:
     want = np.zeros(32 * 128, np.uint8)
     want[:3000] = hay
     np.testing.assert_array_equal(got.cpu().numpy().ravel(), want)
+
+
+def test_stage_rows_zeroes_a_reused_pinned_block(cuda, monkeypatch) -> None:
+    """A batch's rows staged after layouts of 0xFF bytes of the rows' and
+    the lengths' sizes take those cached pinned blocks back; on the card
+    the rows read zero past each document and the lengths are exact."""
+    lens = [1000, 0, 4096, 7, 4095]
+    docs = [np.random.default_rng(k).integers(1, 256, k, dtype=np.uint8)
+            for k in lens]
+    Bb, T = scan_cuda.batch_layout(lens, 1)
+    blocks: list[int] = []
+    empty = torch.empty
+
+    def spy(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        if kwargs.get("pin_memory"):
+            blocks.append(t.data_ptr())
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy)
+    _dirty_pinned_blocks(cuda, [Bb * T, 4 * Bb], copies=1)
+    rows, got_lens = scan_cuda.stage_rows(docs, (Bb, T), cuda)
+    torch.cuda.synchronize(cuda)
+    assert len(blocks) == 4 and set(blocks[2:]) == set(blocks[:2])
+    want = np.zeros((Bb, T), np.uint8)
+    for i, d in enumerate(docs):
+        want[i, : len(d)] = d
+    assert rows.device == cuda and got_lens.dtype == torch.int32
+    np.testing.assert_array_equal(rows.cpu().numpy(), want)
+    np.testing.assert_array_equal(got_lens.cpu().numpy(),
+                                  lens + [0] * (Bb - len(lens)))
 
 
 def test_streamed_on_dirty_pinned_blocks_equals_whole_buffer(cuda) -> None:

@@ -441,7 +441,7 @@ def test_dense_error_on_same_inputs(monkeypatch, path: str) -> None:
     """A match-dense shard: both raise MatchDenseError with the same
     message, on every rank; a sparse corpus returns equal results."""
     monkeypatch.setattr(ref_sharded, "DENSE_BAILOUT_MIN", 64)
-    monkeypatch.setattr(port_sharded, "DENSE_BAILOUT_MIN", 64)
+    monkeypatch.setattr(port_scan, "DENSE_BAILOUT_MIN", 64)
     pats = [b"a" * k for k in range(1, 5)]
     ref_am = build_automaton(pats)
     am = _port_automaton(ref_am)

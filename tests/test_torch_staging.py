@@ -1,9 +1,13 @@
-"""Single-document staging (``scan_cuda.stage_padded``) on the CPU: the
+"""Staging on the CPU.  One document (``scan_cuda.stage_padded``): the
 staged layout equals the zero-padded numpy layout byte for byte, each
 byte is counted once (``pin_bytes`` the haystack, ``pad_bytes`` the
 tail, ``h2d_bytes`` the layout), and the Teddy, dense and shard sites
-stage through it.  The card's pinned blocks are held in
-``tests/test_torch_gpu.py``."""
+stage through it.  A batch's rows (``scan_cuda.stage_rows``): the staged
+rows equal the zero-padded ``[Bb, T]`` numpy layout, the lengths come
+with them, every byte is counted (``pad_bytes`` the rows, ``pin_bytes``
+the documents and 4 bytes a row, ``h2d_bytes`` the rows and the
+lengths), and the one-device and sharded batch scans stage through it.
+The card's pinned blocks are held in ``tests/test_torch_gpu.py``."""
 
 from __future__ import annotations
 
@@ -25,6 +29,13 @@ OVER_HALF = 300
 #: haystack lengths: empty, around one 128-byte row, past 64 KiB, and
 #: one past 1,024 rows, whose layout of 2,048 rows is just under half tail
 SIZES = [0, 1, 127, 128, 129, OVER_HALF, (64 << 10) + 3, 128 * 1024 + 1]
+#: a batch's documents by their lengths (``stage_rows``): with empty
+#: documents, with ones of exactly ``T`` bytes, and past ``MIN_LANES`` rows
+ROW_SETS = {
+    "rows-with-empty": [0, 40, 3, 0, 17],
+    "rows-of-exactly-T": [64, 10, 64, 63],
+    "rows-past-min-lanes": [100, 1, 0, 128, 7, 99, 64, 2, 31, 5],
+}
 
 
 def _hay(n: int) -> np.ndarray:
@@ -38,10 +49,23 @@ def _padded(hay: np.ndarray, total: int) -> np.ndarray:
     return want
 
 
+def _rows(lens: list[int]):
+    """Documents of ``lens`` bytes, none zero, their ``(Bb, T)`` layout,
+    and that layout zero-padded and its lengths, as numpy builds them."""
+    docs = [_hay(k) for k in lens]
+    Bb, T = scan_cuda.batch_layout(lens, 1)
+    want = np.zeros((Bb, T), dtype=np.uint8)
+    for i, d in enumerate(docs):
+        want[i, : len(d)] = d
+    want_lens = np.zeros(Bb, dtype=np.int32)
+    want_lens[: len(lens)] = lens
+    return docs, (Bb, T), want, want_lens
+
+
 def _teddy_rows(n: int) -> int:
     rows = -(-max(n, 1) // 128)
-    R = min(scan_teddy.BLOCK_ROWS, scan_teddy._bucket(rows, lo=8))
-    return max(R, scan_teddy._bucket(rows, lo=8))
+    R = min(scan_teddy.BLOCK_ROWS, scan_cuda._bucket(rows, lo=8))
+    return max(R, scan_cuda._bucket(rows, lo=8))
 
 
 def _scanner() -> scan_teddy.TeddyScanner:
@@ -52,8 +76,22 @@ def _scanner() -> scan_teddy.TeddyScanner:
     )
 
 
-@pytest.mark.parametrize("n", SIZES)
-def test_staged_layout_is_the_zero_padded_layout(n: int) -> None:
+@pytest.mark.parametrize(
+    "n", SIZES + [pytest.param(k, id=k) for k in ROW_SETS]
+)
+def test_staged_layout_is_the_zero_padded_layout(n: int | str) -> None:
+    if n in ROW_SETS:
+        docs, (Bb, T), want, want_lens = _rows(ROW_SETS[n])
+        trace.reset_counters()
+        rows, lens = scan_cuda.stage_rows(docs, (Bb, T), CPU)
+        assert rows.dtype == torch.uint8 and lens.dtype == torch.int32
+        np.testing.assert_array_equal(rows.numpy(), want)
+        np.testing.assert_array_equal(lens.numpy(), want_lens)
+        assert trace.counters() == {
+            "pad_bytes": Bb * T, "pin_bytes": sum(ROW_SETS[n]) + 4 * Bb,
+            "h2d_bytes": Bb * T + 4 * Bb,
+        }
+        return
     hay = _hay(n)
     rows_p = _teddy_rows(n)
     got = scan_cuda.stage_padded(hay, (rows_p, 128), CPU)
@@ -137,4 +175,47 @@ def test_dense_segments_stage_each_byte_once(monkeypatch) -> None:
         "pin_bytes": sum(m for m, _ in staged),
         "pad_bytes": sum(t - m for m, t in staged),
         "h2d_bytes": sum(t for _, t in staged),
+    }
+
+
+@pytest.mark.parametrize("ranks", [1, 3])
+def test_batch_scans_stage_every_row_block_through_stage_rows(
+    ranks: int, monkeypatch
+) -> None:
+    """``scan_device_batch`` (one rank) and every rank of
+    ``scan_sharded_batch`` over ``["cpu"] * 3`` stage their own row block
+    through ``stage_rows``, each row counted once over all ranks."""
+    names = [b"hello", b"world"]
+    am = build_automaton(names)
+    tables = scan_cuda.DeviceTables(am, "dfa", CPU)
+    lens = ROW_SETS["rows-past-min-lanes"]
+    text = b"xhello worldy" * 10
+    docs = [np.frombuffer(text[:k], np.uint8) for k in lens]
+    Bb, T = scan_cuda.batch_layout(lens, ranks)
+    Bl = Bb // ranks
+    staged: list[tuple[tuple[int, ...], tuple[int, int]]] = []
+    module = scan_cuda if ranks == 1 else sharded
+    orig = module.stage_rows
+
+    def spy(d, shape, device):
+        staged.append((tuple(len(x) for x in d), shape))
+        return orig(d, shape, device)
+
+    monkeypatch.setattr(module, "stage_rows", spy)
+    trace.reset_counters()
+    if ranks == 1:
+        pos, _st, got_T = scan_cuda.scan_device_batch(am, docs, tables)
+    else:
+        mesh = sharded.make_mesh(devices=["cpu"] * ranks)
+        pos, _st, got_T = sharded.scan_sharded_batch(am, docs, tables, mesh)
+    assert got_T == T
+    assert sorted(staged) == sorted(
+        (tuple(lens[r * Bl : (r + 1) * Bl]), (Bl, T)) for r in range(ranks)
+    )
+    assert len(pos) == sum(
+        text[:k].count(b"hello") + text[:k].count(b"world") for k in lens
+    )
+    assert trace.counters() == {
+        "pad_bytes": Bb * T, "pin_bytes": sum(lens) + 4 * Bb,
+        "h2d_bytes": Bb * T + 4 * Bb,
     }

@@ -242,8 +242,8 @@ def test_counters_of_the_teddy_document_path():
     _ac, call = _warm("teddy")
     n = len(DOC.encode())
     rows = -(-n // 128)
-    rows_p = max(min(scan_teddy.BLOCK_ROWS, scan_teddy._bucket(rows, lo=8)),
-                 scan_teddy._bucket(rows, lo=8))
+    rows_p = max(min(scan_teddy.BLOCK_ROWS, scan_cuda._bucket(rows, lo=8)),
+                 scan_cuda._bucket(rows, lo=8))
     trace.reset_counters()
     call()
     # an ASCII document is staged from the string's own storage
@@ -292,9 +292,11 @@ def test_counters_of_the_batch_path():
                            lo=scan_cuda.MIN_LANES)
     trace.reset_counters()
     call()
+    # the rows zeroed once, the lines and their int32 lengths written
+    # into them, and both copied to the device
     assert trace.counters() == {
-        "scanned_bytes": S, "encode_bytes": S, "pad_bytes": Bb * T + 4 * Bb,
-        "pin_bytes": Bb * T, "h2d_bytes": Bb * T + 4 * Bb,
+        "scanned_bytes": S, "encode_bytes": S, "pad_bytes": Bb * T,
+        "pin_bytes": S + 4 * Bb, "h2d_bytes": Bb * T + 4 * Bb,
     }
 
 
@@ -405,9 +407,8 @@ def test_a_traced_cell_reports_every_new_metric(cell, monkeypatch):
             (c["encode_bytes"] + c["pad_bytes"] + c["pin_bytes"]) / S)
         assert got["h2d_bytes_per_byte.batch"]["value"] == pytest.approx(
             c["h2d_bytes"] / S)
-        # the lens: 4 bytes a row, staged and copied beside the rows
-        assert c["pad_bytes"] - c["pin_bytes"] == \
-            c["h2d_bytes"] - c["pin_bytes"] > 0
+        # the lens: 4 bytes a row, written and copied beside the rows
+        assert c["pin_bytes"] - S == c["h2d_bytes"] - c["pad_bytes"] > 0
     gaps = {k for k, _ in out["breakdown"]["idle_gaps"]}
     assert gaps  # the CPU device has no busy time: every gap is idle
 
