@@ -773,6 +773,9 @@ def scan_device(
 
     Streams large haystacks through independent halo'd segments; within a
     segment runs the bucketed lane scan with overflow-retry compaction.
+    Segments are cut by their context: a later segment's halo and new
+    bytes together fill at most ``segment_bytes``, so with a power of two
+    every full segment fills its layout exactly.
     Returns global (positions, states) as int64 NumPy arrays.
     """
     n = len(hay)
@@ -786,9 +789,10 @@ def scan_device(
     all_pos: list[np.ndarray] = []
     all_states: list[np.ndarray] = []
     seg = max(segment_bytes, 2 * max(1, halo))
-    for seg_start in range(0, n, seg):
-        seg_end = min(n, seg_start + seg)
+    seg_start = 0
+    while seg_start < n:
         ctx_start = max(0, seg_start - halo)
+        seg_end = min(n, ctx_start + seg)
         drop = seg_start - ctx_start  # leading context positions to discard
         m = seg_end - ctx_start
         L, T = choose_layout(m, halo)
@@ -822,6 +826,7 @@ def scan_device(
         keep = pos >= drop
         all_pos.append(pos[keep] - drop + seg_start)
         all_states.append(st[keep])
+        seg_start = seg_end
     positions = np.concatenate(all_pos) if all_pos else np.zeros(0, np.int64)
     states = np.concatenate(all_states) if all_states else np.zeros(0, np.int64)
     return positions, states

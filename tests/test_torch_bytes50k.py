@@ -31,6 +31,12 @@ SEED = 2147500101
 #: the segment length the tests cut ``scan_device`` to, and the document
 SEGMENT = 64 << 10
 DOC_BYTES = 256 << 10
+#: the patterns' halo (the longest is 11 bytes): every context after the
+#: first starts this many bytes before its first new byte
+HALO = 10
+#: the first new byte of every segment after the first: each context,
+#: halo and new bytes, is ``SEGMENT`` bytes, the last one what is left
+SEAMS = list(range(SEGMENT, DOC_BYTES, SEGMENT - HALO))
 
 
 @pytest.fixture(scope="module")
@@ -70,8 +76,9 @@ def _document(spec, patterns) -> bytes:
     params = dict(spec["traffic"], doc_chars=DOC_BYTES)
     doc = bytearray(traffic.inputs(patterns, params, SEED)[0])
     top = max(map(len, patterns))
+    assert top - 1 == HALO
     longest = [p for p in patterns if len(p) == top]
-    for k, seam in enumerate(range(SEGMENT, DOC_BYTES, SEGMENT)):
+    for k, seam in enumerate(SEAMS):
         p = longest[k]
         at = seam - len(p) // 2
         doc[at : at + len(p)] = p
@@ -90,8 +97,9 @@ def test_segmented_dense_path_equals_the_reference(
     orig_layout = scan_cuda.choose_layout
 
     def spy(m, halo):
-        layouts.append(orig_layout(m, halo))
-        return layouts[-1]
+        assert halo == HALO
+        layouts.append((m, orig_layout(m, halo)))
+        return layouts[-1][1]
 
     monkeypatch.setattr(scan_cuda, "choose_layout", spy)
     monkeypatch.setattr(scan_cuda, "scan_device", functools.partial(
@@ -102,12 +110,19 @@ def test_segmented_dense_path_equals_the_reference(
     assert ac.stats()["last_backend"] == "device"
     tables = ac._get_device_tables()
     assert tables.engine == "classed" and tables.packed2 is None  # K2
-    assert len(layouts) == DOC_BYTES // SEGMENT
+    # five contexts, the last 40 bytes: no layout past the segment, and
+    # padding of at most one minimal layout in all
+    assert len(layouts) == len(SEAMS) + 1 == 5
+    assert [m for m, _ in layouts] == [SEGMENT] * 4 + [DOC_BYTES - SEAMS[-1]
+                                                      + HALO]
+    assert all(L * T <= SEGMENT for _, (L, T) in layouts)
+    assert sum(L * T - m for m, (L, T) in layouts) <= (
+        scan_cuda.MIN_LANES * scan_cuda.TARGET_TIME)
     want = Reference(patterns, kind, overlapping=overlapping).find(doc)
     assert got == want
     # the planted signatures and the seams' plants, at least
-    assert len(want) >= 64 + DOC_BYTES // SEGMENT - 1
-    for seam in range(SEGMENT, DOC_BYTES, SEGMENT):
+    assert len(want) >= 64 + len(SEAMS)
+    for seam in SEAMS:
         assert any(s < seam < e for _p, s, e in want), seam
 
 

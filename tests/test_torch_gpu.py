@@ -452,16 +452,39 @@ def test_verify_body_kernel_is_one_launch(cuda) -> None:
     assert launched["fire_groups"] == 0
 
 
+#: a power-of-two segment: every full context fills its layout exactly
+POW2_SEGMENT = 1 << 16
+
+
+def _across_seams(hay: bytes, names: list[bytes]) -> tuple[np.ndarray, list]:
+    """``hay`` with its longest name across every seam of ``scan_device``'s
+    plan at ``POW2_SEGMENT`` (each context, halo and new bytes, that long;
+    the names' halo is even, so K2, K6 and K7 cut alike), which leaves a
+    short tail segment; and the planted matches' last bytes."""
+    name = max(names, key=len)
+    halo = len(name) - 1
+    assert halo % 2 == 0
+    seams = range(POW2_SEGMENT, len(hay), POW2_SEGMENT - halo)
+    assert len(hay) - seams[-1] < POW2_SEGMENT - halo  # a tail
+    out = bytearray(hay)
+    for seam in seams:
+        at = seam - len(name) // 2
+        out[at : at + len(name)] = name
+    ends = [seam - len(name) // 2 + halo for seam in seams]
+    return np.frombuffer(bytes(out), np.uint8), ends
+
+
 @pytest.mark.parametrize("engine", ["dfa", "classed"])
 def test_device_paths_equal_cpu(cuda, engine: str) -> None:
     names = _names(9, 60)
     am = build_automaton(names)
-    hay = np.frombuffer(_corpus(10, 400_000, names, 500), np.uint8)
+    hay, ends = _across_seams(_corpus(10, 400_000, names, 500), names)
     cpu_t = scan_cuda.DeviceTables(am, engine, "cpu")
     gpu_t = scan_cuda.DeviceTables(am, engine, cuda)
-    for seg in (1 << 20, 50_000):
+    for seg in (1 << 20, 50_000, POW2_SEGMENT):
         want = scan_cuda.scan_device(am, hay, cpu_t, segment_bytes=seg)
         got = scan_cuda.scan_device(am, hay, gpu_t, segment_bytes=seg)
+        assert set(ends) <= set(got[0].tolist())
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
     pf = build_prefilter(names)
@@ -880,8 +903,8 @@ def test_lane_scans_every_carveout(cuda) -> None:
 def test_sparse_device_path_equals_cpu(cuda) -> None:
     names = _names(51, 60)
     am = build_automaton(names)
-    hay = np.frombuffer(_corpus(52, 200_000, names, 400), np.uint8)
-    for seg in (1 << 20, 50_000):
+    hay, ends = _across_seams(_corpus(52, 200_000, names, 400), names)
+    for seg in (1 << 20, 50_000, POW2_SEGMENT):
         want = scan_cuda.scan_device(
             am, hay, scan_cuda.DeviceTables(am, "sparse", "cpu"),
             segment_bytes=seg,
@@ -891,6 +914,7 @@ def test_sparse_device_path_equals_cpu(cuda) -> None:
             segment_bytes=seg,
         )
         assert len(want[0]) > 100
+        assert set(ends) <= set(got[0].tolist())
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
 

@@ -2,7 +2,7 @@
 staged layout equals the zero-padded numpy layout byte for byte, each
 byte is counted once (``pin_bytes`` the haystack, ``pad_bytes`` the
 tail, ``h2d_bytes`` the layout), and the Teddy, dense and shard sites
-stage through it.  A batch's rows (``scan_cuda.stage_rows``): the staged
+stage through it; the dense scan cuts its segments by their context.  A batch's rows (``scan_cuda.stage_rows``): the staged
 rows equal the zero-padded ``[Bb, T]`` numpy layout, the lengths come
 with them, every byte is counted (``pad_bytes`` the rows, ``pin_bytes``
 the documents and 4 bytes a row, ``h2d_bytes`` the rows and the
@@ -170,12 +170,82 @@ def test_dense_segments_stage_each_byte_once(monkeypatch) -> None:
     monkeypatch.setattr(scan_cuda, "stage_padded", spy)
     trace.reset_counters()
     pos, _st = scan_cuda.scan_device(am, hay, tables, segment_bytes=4096)
-    assert len(staged) == 3 and len(pos) == 2 * 700
+    assert [m for m, _ in staged] == [4096, 4096, 916] and len(pos) == 2 * 700
     assert trace.counters() == {
         "pin_bytes": sum(m for m, _ in staged),
         "pad_bytes": sum(t - m for m, t in staged),
         "h2d_bytes": sum(t for _, t in staged),
     }
+
+
+#: the cut rule's power-of-two segment, and a haystack three full segments
+#: and a short tail long: 4,096 + 3 × (4,096 − halo) new bytes and 50 more
+CUT_SEGMENT = 4096
+CUT_NAMES = [b"hello", b"world", b"abcdefghab", b"bore", b"dwarf"]
+
+
+@pytest.mark.parametrize("packed2_max_bytes", [0, None], ids=["k2-odd-halo",
+                                                             "stride2-even-halo"])
+def test_dense_segments_are_cut_by_their_context(
+    packed2_max_bytes, monkeypatch
+) -> None:
+    """``scan_device`` cuts every context (halo and new bytes) at the
+    segment length: contexts overlap by exactly the halo, their new bytes
+    cover the haystack once, a power-of-two segment pads at most one
+    minimal layout, and the tuples equal the JAX package's
+    ``scan_device``, which cuts segments by their start."""
+    import ahocorasick_rs_tpu.ops.scan_jax as ref_scan
+    from ahocorasick_rs_tpu.models.automaton import (
+        build_automaton as ref_build,
+    )
+    from ahocorasick_rs_tpu_torch.utils import convert
+
+    ref_am = ref_build(CUT_NAMES)
+    am = convert.automaton_from_arrays(
+        ref_am.edge_keys, ref_am.edge_targets, ref_am.fail, ref_am.depth,
+        ref_am.match_offsets, ref_am.match_pids, ref_am.pattern_lens,
+    )
+    kw = {} if packed2_max_bytes is None else {"packed2_max_bytes": 0}
+    tables = scan_cuda.DeviceTables(am, "dfa", CPU, **kw)
+    stride2 = tables.ensure_packed2()
+    assert stride2 == (packed2_max_bytes is None)
+    halo = am.max_len - 1 + stride2  # 9, or 10 for pairs
+    n = CUT_SEGMENT + 3 * (CUT_SEGMENT - halo) + 50
+    text = bytearray(b"xhello worldy dwarf " * (n // 20 + 1))[:n]
+    seams = [CUT_SEGMENT + k * (CUT_SEGMENT - halo) for k in range(4)]
+    for seam in seams:  # a name across every seam of the plan
+        text[seam - 5 : seam + 5] = b"abcdefghab"
+    hay = np.frombuffer(bytes(text), dtype=np.uint8)
+    staged: list[tuple[int, int]] = []
+    orig = scan_cuda.stage_padded
+
+    def spy(h, shape, device, stream=None):
+        staged.append((h.ctypes.data - hay.ctypes.data, len(h)))
+        return orig(h, shape, device, stream)
+
+    monkeypatch.setattr(scan_cuda, "stage_padded", spy)
+    trace.reset_counters()
+    got = scan_cuda.scan_device(am, hay, tables, segment_bytes=CUT_SEGMENT)
+    assert len(staged) == 5 and staged[-1][1] == 50 + halo  # a short tail
+    assert all(m <= CUT_SEGMENT for _, m in staged)
+    assert staged[0] == (0, CUT_SEGMENT)
+    new = [(0, CUT_SEGMENT)]
+    for (s0, m0), (s1, m1) in zip(staged, staged[1:]):
+        assert s0 + m0 - s1 == halo  # overlap by exactly the halo
+        new.append((s1 + halo, s1 + m1))
+    assert [a for a, _ in new[1:]] == [b for _, b in new[:-1]]
+    assert new[-1][1] == n  # the new bytes cover the haystack once
+    assert trace.counters()["pad_bytes"] <= (
+        scan_cuda.MIN_LANES * scan_cuda.TARGET_TIME)
+    want = ref_scan.scan_device(
+        ref_am, hay, ref_scan.DeviceTables(ref_am, "dfa", **kw),
+        segment_bytes=CUT_SEGMENT,
+    )
+    assert len(want[0]) > 4 * 50
+    assert {seam + 4 for seam in seams} <= set(got[0].tolist())
+    for a, b in zip(got, want):
+        assert a.dtype == np.int64
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("ranks", [1, 3])
