@@ -86,9 +86,12 @@ class ShardGroup:
             self.size = dist.get_world_size(group)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """``[size, *t.shape]``: every rank's ``t`` in rank order."""
+        """``[size, *t.shape]``: every rank's ``t`` in rank order.  The
+        other ranks' parts are counted as ``gather_bytes``."""
         if self.group is None:
             return t[None]
+        trace.count("gather_bytes",
+                    (self.size - 1) * t.numel() * t.element_size())
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t.contiguous(), group=self.group)
         return torch.stack(parts)
@@ -142,7 +145,8 @@ class ThreadGroup(ShardGroup):
     that stream, so that the caching allocator does not hand its memory
     out again while the read is queued; a tensor on another device is then
     copied to the reader's.  The second barrier keeps a rank from
-    publishing again before every rank has queued its reads.
+    publishing again before every rank has queued its reads.  The parts a
+    rank reads from the other ranks are counted as ``gather_bytes``.
     """
 
     def __init__(
@@ -162,6 +166,10 @@ class ThreadGroup(ShardGroup):
             ready.record(torch.cuda.current_stream(mine.device))
         self.ring.slots[self.rank] = (mine, ready)
         self.ring.wait()
+        trace.count("gather_bytes", sum(
+            src.numel() * src.element_size()
+            for r, (src, _ev) in enumerate(self.ring.slots) if r != self.rank
+        ))
         parts = []
         for src, ev in self.ring.slots:
             if ev is not None:
@@ -187,7 +195,8 @@ class LocalMesh:
     result.  A rank that raises aborts the ring, so the other ranks fail
     at their next exchange instead of waiting for it; :meth:`run` joins
     every thread and raises the first rank's own error.  Calls on one mesh
-    run one at a time.
+    run one at a time.  The calling thread holds the span ``ranks`` over
+    the whole run, its wait for the rank threads included.
     """
 
     def __init__(self, devices: Sequence[Union[str, torch.device]]) -> None:
@@ -216,7 +225,7 @@ class LocalMesh:
         self._lock = threading.Lock()
 
     def run(self, fn: Callable[[ThreadGroup], _R]) -> list[_R]:
-        with self._lock:
+        with trace.span("ranks"), self._lock:
             ring = Ring(self.size)
             out: list = [None] * self.size
             errors: list[Optional[BaseException]] = [None] * self.size

@@ -11,7 +11,9 @@ is a range too, on the thread that ran it: ``gc_full`` for generation 2,
 ``gc_young`` for generations 0 and 1.  The hook that opens them sits in
 ``gc.callbacks`` only while a session runs: the first span that finds a
 session on puts it in, the first span or collection that finds none
-takes it out.
+takes it out.  A local mesh's calling thread holds ``ranks`` over the
+whole run of its rank threads (``parallel.sharded.LocalMesh.run``), so
+its wait for them is labelled and is not the API's own time.
 
 Counters.  :func:`count` adds to a named total, always, under one lock;
 :func:`counters` reads them.  The port counts once a call or a staging
@@ -29,7 +31,10 @@ site, never a document:
   its pinned block, and the documents and 4 bytes a row of lengths
   ``scan_cuda.stage_rows`` writes into its pinned blocks (on the CPU
   device, the ordinary tensors that stand in for them);
-* ``h2d_bytes``: every host-to-device copy staging issues.
+* ``h2d_bytes``: every host-to-device copy staging issues;
+* ``gather_bytes``: every byte a rank of a sharded scan receives from
+  another rank through ``all_gather`` (``parallel.sharded``): the shard
+  tails' exchange and the gather of every rank's outputs.
 """
 
 from __future__ import annotations

@@ -1568,6 +1568,38 @@ def test_local_mesh_shard_calls_on_card(cuda, k: int) -> None:
             )
 
 
+def test_local_mesh_across_distinct_cards(cuda) -> None:
+    """``make_mesh()`` over every card, one thread rank a card: the four
+    sharded calls equal the single-device port's tuples, each call
+    launches one K8 body a rank, and each rank's device holds its own
+    copy of the tables.  This holds ``ThreadGroup.all_gather``'s copy of
+    another card's tensor and every launcher's device guard."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    k = torch.cuda.device_count()
+    names = [n.decode() for n in _names(98, 300)]
+    hay = _corpus(99, 6 << 20, [n.encode() for n in names], 4000).decode()
+    docs = [hay[i : i + 620] for i in range(0, 620 * 5000, 620)]
+    mesh = sharded.make_mesh()
+    assert isinstance(mesh, sharded.LocalMesh)
+    assert mesh.devices == [torch.device("cuda", i) for i in range(k)]
+    for tier, kw, teddy, call in LOCAL_CALLS:
+        one = AhoCorasick(names, backend="device", device=cuda, **kw)
+        one._teddy_state = teddy
+        want = call(one, hay, docs)
+        ac = AhoCorasick(names, backend="sharded", mesh=mesh, device=cuda,
+                         **kw)
+        ac._teddy_state = teddy
+        assert call(ac, hay, docs) == want, tier
+        _kernels.reset_launches()
+        for _ in range(2):
+            assert call(ac, hay, docs) == want, tier
+        assert ac.stats()["last_backend"] == tier
+        assert _kernels.LAUNCHES["shard_body"] == 2 * k, tier
+    tables = ac._get_device_tables()
+    assert {tables.on(d).device for d in mesh.devices} == set(mesh.devices)
+
+
 def test_local_mesh_concurrent_calls_on_card(cuda) -> None:
     """Two threads call one matcher with a local mesh of 2 ranks on the
     card at once; each call equals the single-device answer."""

@@ -285,7 +285,13 @@ def test_batch_scans_stage_every_row_block_through_stage_rows(
     assert len(pos) == sum(
         text[:k].count(b"hello") + text[:k].count(b"world") for k in lens
     )
-    assert trace.counters() == {
+    want = {
         "pad_bytes": Bb * T, "pin_bytes": sum(lens) + 4 * Bb,
         "h2d_bytes": Bb * T + 4 * Bb,
     }
+    if ranks > 1:
+        # every rank receives the others' positions, states and total,
+        # int64 at the capacity the call started from
+        want["gather_bytes"] = ranks * (ranks - 1) * (2 * tables.last_cap
+                                                      + 1) * 8
+    assert trace.counters() == want

@@ -332,6 +332,92 @@ def test_counters_of_a_local_mesh_count_every_rank(monkeypatch):
     assert "encode_bytes" not in c
 
 
+def _mesh_dense(ranks: int) -> AhoCorasick:
+    ac = AhoCorasick(NAMES, implementation=Implementation.DFA,
+                     backend="sharded", device="cpu",
+                     mesh=sharded.make_mesh(devices=["cpu"] * ranks))
+    ac._teddy_state = "off"
+    assert ac.find_matches_as_indexes(DOC)
+    assert ac.stats()["last_backend"] == "sharded"
+    return ac
+
+
+def test_gather_bytes_of_a_four_rank_call_equal_the_shapes():
+    """Each of four ranks receives the other three ranks' tails (``halo``
+    int32 bytes) and their outputs (positions, states and the total,
+    int64, at the capacity the call ran at)."""
+    ac = _mesh_dense(4)
+    halo = ac._automaton.max_len - 1
+    cap = ac._get_device_tables().last_cap
+    trace.reset_counters()
+    ac.find_matches_as_indexes(DOC)
+    assert ac._get_device_tables().last_cap == cap  # one run, no retry
+    assert trace.counters()["gather_bytes"] == 4 * 3 * (
+        4 * halo + 8 * (2 * cap + 1))
+
+
+def test_a_process_group_counts_the_other_ranks_parts(monkeypatch):
+    """A ``ShardGroup`` of four process ranks receives three parts of the
+    tensor it sends; a world of one rank receives none."""
+    g = sharded.ShardGroup(None)
+    trace.reset_counters()
+    g.all_gather(torch.zeros(5, dtype=torch.int64))
+    assert trace.counters().get("gather_bytes", 0) == 0
+    g.group, g.rank, g.size = object(), 1, 4
+
+    def all_gather(parts, t, group=None):
+        for p in parts:
+            p.copy_(t)
+
+    monkeypatch.setattr(sharded.dist, "all_gather", all_gather)
+    got = g.all_gather(torch.arange(6, dtype=torch.int32))
+    assert got.shape == (4, 6)
+    assert trace.counters()["gather_bytes"] == 3 * 6 * 4
+
+
+def test_the_ranks_span_is_the_calling_threads():
+    """Under a session the calling thread of a four-rank call holds
+    ``ranks``; every rank's ``stage``, ``exchange`` and ``gather`` lie
+    inside it in time, on threads of their own."""
+    import threading
+
+    ac = _mesh_dense(4)
+    rec = _traced(lambda: ac.find_matches_as_indexes(DOC))
+    me = threading.get_ident()
+    ranks = [r for r in rec.ranges if r[0] == "ranks"]
+    assert len(ranks) == 1 and ranks[0][1] == me
+    _n, _t, a, b = ranks[0]
+    inner = [r for r in rec.ranges if r[0] in ("stage", "exchange", "gather")]
+    assert {r[0] for r in inner} == {"stage", "exchange", "gather"}
+    assert len({r[1] for r in inner}) == 4 and me not in {r[1] for r in inner}
+    assert all(a <= c and d <= b for _m, _u, c, d in inner)
+
+
+def test_api_self_time_leaves_the_ranks_out():
+    """A call that is only a local mesh's run is almost all ``ranks``: its
+    API self time is the rest, and without the span it would be the
+    whole call."""
+    import threading
+
+    from portbench.trace import CALL_SPAN, summarize
+
+    mesh = sharded.make_mesh(devices=["cpu"] * 4)
+    me = threading.get_ident()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU]
+    ), SpanRecorder() as rec:
+        a = time.perf_counter()
+        mesh.run(lambda g: time.sleep(0.2))
+        b = time.perf_counter()
+    events = [(CALL_SPAN, False, -1, a * 1e6, b * 1e6)]
+    got = summarize(events, rec, [(me, a, b)], 1)
+    assert b - a >= 0.2
+    assert got.api_self_s < 0.05
+    assert got.span_s["ranks"] >= 0.2
+    rec.ranges = [r for r in rec.ranges if r[0] != "ranks"]
+    assert summarize(events, rec, [(me, a, b)], 1).api_self_s >= 0.2
+
+
 def test_counters_add_under_concurrent_threads():
     import threading
 
@@ -431,6 +517,49 @@ def test_counter_readers_read_nothing_without_the_counters(name, monkeypatch):
     assert read(W()) is None  # the other call kind
     W.call = name.rsplit(".", 1)[1]
     # a port without the counters (the parent of this module)
+    import ahocorasick_rs_tpu_torch.utils as utils
+
+    monkeypatch.delattr(utils, "trace")
+    monkeypatch.setitem(sys.modules, "ahocorasick_rs_tpu_torch.utils.trace",
+                        None)
+    assert read(W()) is None
+
+
+def test_the_mesh_cell_reports_its_exchange_metrics():
+    """The four-card cell, cut to a 1 MiB document on four CPU ranks with
+    its seams where they cut it: the exchange's span and counter metrics
+    read, the calling thread's wait is labelled ``ranks``, and the API's
+    own time is a small part of a call."""
+    spec = run.cell_spec(run.load_bench(), "pii100k-doc1g-mesh4")
+    spec["traffic"].update(doc_chars=1 << 20, seam_bytes=1 << 18)
+    trace.reset_counters()
+    out = run_cell(spec, SEED, 0.5, True, t_start=time.time(),
+                   devices=["cpu"] * 4, log=lambda s: None)
+    assert out["correct"], out["checks"]
+    assert out["host"]["last_backend"] == "sharded"
+    got = {k: v["value"] for k, v in out["metrics"].items()}
+    assert got["exchange_ms.doc"] > 0
+    c = trace.counters()
+    assert got["gather_bytes_per_byte.doc"] == pytest.approx(
+        c["gather_bytes"] / c["scanned_bytes"])
+    assert got["api_self_ms.doc"] < got["doc_call_p95_ms"] / 10
+    assert "ranks" in {k for k, _ in out["breakdown"]["idle_gaps"]}
+
+
+def test_the_gather_reader_reads_nothing_without_the_counter(monkeypatch):
+    class W:
+        call = "doc"
+        trace = None
+
+    read = load_reader("gather_bytes_per_byte.doc")
+    trace.reset_counters()
+    trace.count("scanned_bytes", 100)
+    assert read(W()) is None  # no sharded call, or a port that counts none
+    trace.count("gather_bytes", 30)
+    assert read(W()) == pytest.approx(0.3)
+    W.call = "batch"
+    assert read(W()) is None
+    W.call = "doc"
     import ahocorasick_rs_tpu_torch.utils as utils
 
     monkeypatch.delattr(utils, "trace")
